@@ -1,4 +1,4 @@
-"""amv_tpu: TPU-native AMV codec framework.
+"""amv_tpu: an AMV / G.729A codec framework in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
 tomvanbraeckel/amv-codec-tools: AMV container mux/demux, the AMV MJPEG-variant

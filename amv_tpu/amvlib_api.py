@@ -16,7 +16,7 @@ MFC GUI and console test drive:
 
 This module keeps that call surface (names, return conventions: 0 = ok,
 negative = error, same as AMVDec.c) so code written against amvlib ports
-mechanically, while the work happens in the framework's batched TPU /
+mechanically, while the work happens in the framework's batched device /
 numpy paths:
 
 * AmvVideoDecode fills ``videobuf`` with bottom-up BGR rows exactly like

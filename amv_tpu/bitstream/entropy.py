@@ -1,6 +1,7 @@
 """Host-side entropy coding layer (Huffman scan decode/encode).
 
-Bit-serial Huffman coding is the host boundary of the TPU pipeline: decode
+Bit-serial Huffman coding on the host (the device chain runs its own, see
+kernels/entropy_decode*.py and entropy_encode.py): decode
 produces quantized coefficient levels for the device, encode packs the
 device's quantized levels into the bitstream.  This module provides the
 canonical (pure Python) implementation; `amv_tpu.native` supplies a C
@@ -84,16 +85,6 @@ def huffman_decode_frames(payloads: list[bytes], n_mcu: int) -> np.ndarray:
     for f, p in enumerate(payloads):
         out[f] = _decode_frame_py(p, n_mcu)
     return out
-
-
-def huffman_decode_frames_soa(payloads: list[bytes], n_mcu: int) -> np.ndarray:
-    """Decode a batch -> coefficient-major int16 [64, F*n_mcu*6] (zigzag
-    rows), the fused transcode kernel's input layout."""
-    if _native is not None:
-        return _native.decode_frames_soa(payloads, n_mcu)
-    aos = huffman_decode_frames(payloads, n_mcu)
-    return np.ascontiguousarray(
-        aos.reshape(len(payloads) * n_mcu * 6, 64).T)
 
 
 def huffman_encode_frame(levels_zz: np.ndarray) -> bytes:

@@ -1,4 +1,4 @@
-"""ffmpeg-shaped CLI for the TPU AMV codec framework.
+"""ffmpeg-shaped CLI for the AMV codec framework.
 
 Mirrors the reference's canonical invocations (AMVmuxer/Makefile:24-33):
 
@@ -177,6 +177,8 @@ def main(argv=None):
     out = args.output
     ext = os.path.splitext(out)[1].lower()
 
+    from .backend import enable_compile_cache
+    enable_compile_cache()
     import resource
     import time as _time
     from .utils.profiling import trace
@@ -205,7 +207,7 @@ def main(argv=None):
 
 def _transcode(args):
     """AMV -> AMV re-encode (the `ffmpeg -i in.amv -f amv out.amv` shape):
-    fused Pallas transcode on device, audio passes through bit-exact."""
+    the device transcode chain, audio passes through bit-exact."""
     from .pipeline.transcode import transcode_bytes
     with open(args.inputs[0], "rb") as f:
         data = f.read()
@@ -484,7 +486,7 @@ def _encode(args):
             vst.chunks = vst.chunks[:args.max_frames]
         y, cb, cr = avimod.extract_yuv420(vst)
         # the reference CLI rescales any input to -s (sws_scale,
-        # ffmpeg.c:757); TPU-native separable polyphase resize
+        # ffmpeg.c:757); separable polyphase resize on device
         if args.size and (vst.width, vst.height) != (w, h):
             import jax.numpy as jnp
             from .kernels.scale import resize_yuv420
@@ -527,7 +529,7 @@ def _encode(args):
             pcm = pcm.mean(axis=1).astype(np.int16)
         if rate != args.sample_rate:
             # the reference CLI resamples to -ar (resample2.c via
-            # do_audio_out); polyphase TPU kernel
+            # do_audio_out); polyphase resampler on device
             from .kernels.resample import resample_pcm
             print(f"resampling audio {rate} -> {args.sample_rate} Hz")
             pcm = resample_pcm(pcm, rate, args.sample_rate)

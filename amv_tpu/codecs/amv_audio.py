@@ -1,4 +1,5 @@
-"""AMV IMA-ADPCM audio codec orchestration (host <-> TPU kernels).
+"""AMV IMA-ADPCM audio codec orchestration (host framing, device kernels
+chosen by amv_tpu.backend).
 
 Chunk framing follows AMVmuxer/ffmpeg/libavcodec/adpcm.c:
 * decode: each '01wb' payload = {le16 predictor, le16 step_index,
@@ -15,6 +16,7 @@ import struct
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..kernels import adpcm as K
 from ..verify.ref_adpcm import chunk_lengths
 
@@ -22,7 +24,7 @@ from ..verify.ref_adpcm import chunk_lengths
 def decode_chunks(chunks: list[bytes]) -> np.ndarray:
     """Decode '01wb' payloads to one contiguous int16 PCM stream.
 
-    All chunks decode in a single batched TPU dispatch (they are
+    All chunks decode in a single batched device dispatch (they are
     independent: the header resets the codec state per chunk).
     Like the reference decoder, every nibble byte present is decoded; the
     header's sample count is ignored (adpcm.c:1272-1274 just skips it).
@@ -41,12 +43,7 @@ def decode_chunks(chunks: list[bytes]) -> np.ndarray:
         pred[i] = struct.unpack_from("<h", c, 0)[0]
         sidx[i] = min(max(struct.unpack_from("<H", c, 2)[0], 0), 88)
         payload[i, :lens[i]] = np.frombuffer(c, dtype=np.uint8)[8:]
-    import jax
-    if jax.default_backend() != "cpu":
-        from ..kernels.adpcm_pallas import decode_chunks_pallas as impl
-    else:
-        impl = K.decode_chunks
-    pcm = np.asarray(impl(
+    pcm = np.asarray(backend.adpcm_decoder()(
         jnp.asarray(payload), jnp.asarray(pred), jnp.asarray(sidx)))
     return np.concatenate([pcm[i, :2 * lens[i]] for i in range(n)])
 
@@ -57,9 +54,10 @@ def encode_stream(samples: np.ndarray, frame_size: int,
                   trellis: bool = False) -> list[bytes]:
     """Encode an int16 PCM stream into AMV '01wb' chunk payloads.
 
-    One lax.scan over the whole stream (the quantizer feedback makes the
-    recurrence inherently sequential); chunk boundaries and headers are
-    data-independent and assembled on host.
+    One device pass over the whole stream (the quantizer feedback makes
+    the recurrence sequential, and the step index carries across chunks);
+    chunk boundaries and headers are data-independent and assembled on
+    host.
 
     trellis=True uses the Viterbi quantizer (the reference's `-trellis`
     feature, adpcm.c:287-443 equivalent) for lower distortion.
@@ -77,26 +75,7 @@ def encode_stream(samples: np.ndarray, frame_size: int,
     reset = np.zeros(total, dtype=bool)
     reset[starts] = True
 
-    import jax
-    if jax.default_backend() != "cpu":
-        # Pallas kernel: ~20x the XLA per-sample scan on TPU (chunk
-        # starts are sample-even, so sidx_even covers the headers)
-        from ..kernels.adpcm_encode_pallas import encode_streams_pallas
-        bts, sidx_even = encode_streams_pallas(
-            jnp.asarray(padded[None, :].astype(np.int16)),
-            jnp.asarray(reset[None, :]),
-            jnp.asarray([init_step_index], dtype=jnp.int32))
-        packed = np.asarray(bts[0])
-        sidx_at = np.asarray(sidx_even[0])
-        chunks = []
-        for k, n in enumerate(ns):
-            s = int(starts[k])
-            header = struct.pack("<hHI", int(padded[s]), int(sidx_at[s // 2]),
-                                 (n << 1) & 0xFFFFFFFF)
-            chunks.append(header + packed[s // 2: s // 2 + n].tobytes())
-        return chunks
-
-    nibbles, sidx_before = K.encode_samples(
+    nibbles, sidx_before = backend.adpcm_encoder()(
         jnp.asarray(padded[None, :]), jnp.asarray(reset[None, :]),
         jnp.asarray([init_step_index], dtype=jnp.int32))
     nibbles = np.asarray(nibbles[0])

@@ -1,13 +1,17 @@
-"""AMV MJPEG-variant video codec: host entropy <-> TPU transform split.
+"""AMV MJPEG-variant video codec on the device.
 
-Decode: host Huffman scan decode produces per-block quantized levels
-(zigzag); everything after — DC prediction, dequant, IDCT, MCU->plane
-assembly, the AMV vertical flip — runs as one jitted TPU program over a
-whole batch of frames.
+Decode: the host only strips framing and 0xFF00 stuffing (C unescape);
+Huffman scan decode (backend.entropy_decoder), DC prediction, dequant,
+IDCT, MCU->plane assembly and the AMV vertical flip run as one jitted
+program over a whole batch of frames.
 
-Encode: flip/pad, block extraction, FDCT and quantization run on device for
-the batch; the host packs Huffman bits (mjpegenc.c semantics) from the
-returned levels.
+Encode: flip/pad, block extraction, FDCT, quantization and the Huffman
+pack with stuffing, escaping and framing (kernels/entropy_encode.py) run
+on device for the batch; only payload bytes come back.
+
+A frame the device chain cannot finish (a malformed scan, or an encoded
+frame over its byte budget) goes through the host C entropy coder and is
+counted in backend.host_fallbacks.
 
 Reference semantics: sp5xdec.c + mjpegdec.c (decode), mjpegenc.c +
 mpegvideo_enc.c (encode); see kernels/idct.py and kernels/fdct.py for the
@@ -22,10 +26,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..bitstream import jpeg_tables as T
 from ..bitstream.entropy import (huffman_decode_frames, huffman_encode_frame)
 from ..kernels import idct as KI
 from ..kernels import fdct as KF
+from ..kernels.entropy_encode import encode_frames_device
 
 _QM_RASTER = np.zeros((6, 64), dtype=np.int32)
 _QM_RASTER[:4, T.ZIGZAG] = T.SP5X_QUANT_LUMA_ZZ
@@ -33,11 +39,6 @@ _QM_RASTER[4:, T.ZIGZAG] = T.SP5X_QUANT_CHROMA_ZZ
 
 _ZZ = jnp.asarray(T.ZIGZAG)
 _UNZZ = jnp.asarray(T.UNZIGZAG)
-
-
-def _use_pallas() -> bool:
-    import os
-    return os.environ.get("AMV_PALLAS") == "1" and jax.default_backend() != "cpu"
 
 
 @partial(jax.jit, static_argnames=("mb_w", "mb_h", "width", "height"))
@@ -66,17 +67,7 @@ def decode_transform(levels_zz: jnp.ndarray, mb_w: int, mb_h: int,
     # than the equivalent scatter on every backend
     raster = jnp.take(lv, _UNZZ, axis=-1)
     qm = jnp.asarray(_QM_RASTER)[None, None]
-    if _use_pallas():
-        # coefficient-major Pallas kernel: ~6x faster than the XLA path on
-        # the isolated IDCT, but the [N,64]<->[64,N] layout transposes cost
-        # more than the win inside the fused decode+encode pipeline, so the
-        # XLA path is the default (see bench history); AMV_PALLAS=1 opts in
-        from ..kernels.idct_pallas import idct_put_pallas
-        deq = KI._wrap16(raster * qm).at[..., 0].set(KI._wrap16(dc))
-        pix = idct_put_pallas(deq.astype(jnp.int16).reshape(F, M, 6, 8, 8))
-    else:
-        pix = KI.dequantize_idct(raster, dc, qm)  # uint8 [F, M, 6, 8, 8]
-
+    pix = KI.dequantize_idct(raster, dc, qm)  # uint8 [F, M, 6, 8, 8]
     return assemble_planes(pix, mb_w, mb_h, width, height)
 
 
@@ -96,56 +87,34 @@ def assemble_planes(pix, mb_w: int, mb_h: int, width: int, height: int):
     return y, cb, cr
 
 
-def _unescape_pack(payloads: list[bytes]) -> np.ndarray:
-    """SOI/EOI strip + 0xFF00 unescape into zero-padded rows (the device
-    entropy decoders' input), via the C batch path when available."""
-    try:
-        from ..native import entropy_native as native
-        rows, _ = native.unescape_frames(payloads)
-        return rows
-    except Exception:
-        from ..verify.ref_jpeg import unescape_scan
-        scans = [unescape_scan(p[2:len(p) - 2]) for p in payloads]
-        max_b = (max(len(x) for x in scans) + 3) & ~3
-        arr = np.zeros((len(scans), max_b), np.uint8)
-        for i, x in enumerate(scans):
-            arr[i, :len(x)] = np.frombuffer(x, np.uint8)
-        return arr
+@partial(jax.jit, static_argnames=("width", "height"))
+def decode_scans(scans, width: int, height: int):
+    """Device decode chain: unescaped scan rows uint8 [F, W] ->
+    (y, cb, cr display planes, ok bool [F])."""
+    mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
+    levels, ok = backend.entropy_decoder()(scans, mb_w * mb_h)
+    return (*decode_transform(levels, mb_w, mb_h, width, height), ok)
 
 
-def decode_frames(payloads: list[bytes], width: int, height: int,
-                  device_entropy: bool = False):
+def decode_frames(payloads: list[bytes], width: int, height: int):
     """Decode a batch of AMV '00dc' payloads to YUV420 planes (numpy).
 
-    device_entropy=True runs the Huffman stage on the TPU too
-    (kernels/entropy_decode.py, frame-parallel symbol scan); only the raw
-    scan bytes cross the host link.  Default: host/C scan decode.
-    """
-    mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
-    if device_entropy:
-        arr = _unescape_pack(payloads)
-        if jax.default_backend() == "cpu":
-            # tests / CPU mesh: XLA symbol-scan kernel (interpret-mode
-            # Pallas would be pathologically slow here)
-            from ..kernels.entropy_decode import decode_scans_device
-            levels = decode_scans_device(jnp.asarray(arr), mb_w * mb_h)
-        else:
-            from ..pipeline.transcode import decode_scans_layout
-            # length-sorted batch (lane cursors cluster: fetch window
-            # shrinks, stragglers drop ~1.5x) through the zero-relayout
-            # slab chain (entropy + dequant/IDCT share one layout)
-            lens = np.array([len(p) for p in payloads])
-            order = np.argsort(lens, kind="stable")
-            inv = np.argsort(order)
-            pix = decode_scans_layout(jnp.asarray(arr[order]),
-                                      mb_w * mb_h, win_fetch=64)
-            y, cb, cr = assemble_planes(pix, mb_w, mb_h, width, height)
-            return (np.asarray(y)[inv], np.asarray(cb)[inv],
-                    np.asarray(cr)[inv])
-    else:
-        levels = jnp.asarray(huffman_decode_frames(payloads, mb_w * mb_h))
-    y, cb, cr = decode_transform(levels, mb_w, mb_h, width, height)
-    return np.asarray(y), np.asarray(cb), np.asarray(cr)
+    Only the unescaped scan bytes go to the device; frames the device
+    decoder rejects are decoded by the host C decoder, which raises
+    ValueError on malformed data (mjpegdec.c returns -1 there)."""
+    from ..pipeline.transcode import unescape_sorted
+    rows, inv = unescape_sorted(payloads)
+    y, cb, cr, ok = (np.asarray(a)[inv] for a in
+                     decode_scans(jnp.asarray(rows), width, height))
+    bad = np.flatnonzero(~ok)
+    if len(bad):
+        backend.count_host_fallback("decode", len(bad))
+        mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
+        lv = huffman_decode_frames([payloads[i] for i in bad], mb_w * mb_h)
+        planes = decode_transform(jnp.asarray(lv), mb_w, mb_h, width, height)
+        for dst, src in zip((y, cb, cr), planes):
+            dst[bad] = np.asarray(src)
+    return y, cb, cr
 
 
 # ---------------------------------------------------------------------------
@@ -220,13 +189,7 @@ def encode_transform(y: jnp.ndarray, cb: jnp.ndarray, cr: jnp.ndarray,
         ((1 << 22) // (8 * _encoder_quant_matrix(qscale).astype(np.int64)))
         .astype(np.int32))
     blocks = extract_blocks(y, cb, cr, mb_w, mb_h)
-
-    if _use_pallas():
-        from ..kernels.fdct_pallas import fdct_quantize_pallas
-        levels_raster = fdct_quantize_pallas(
-            blocks, _encoder_quant_qmat_np(qscale))
-    else:
-        levels_raster = KF.fdct_quantize(blocks, qmat)  # [F, M, 6, 64]
+    levels_raster = KF.fdct_quantize(blocks, qmat)  # [F, M, 6, 64]
     return levels_raster[..., _ZZ]  # zigzag order for the entropy coder
 
 
@@ -242,63 +205,42 @@ def _encoder_quant_matrix(qscale: int) -> np.ndarray:
     return m
 
 
-def encode_frames(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
-                  qscale: int = 2, device_entropy: bool = False,
-                  quant: str = "ffmpeg") -> list[bytes]:
-    """Encode YUV420 frames into AMV '00dc' payloads.
+def encode_bytes_bound(n_mcu: int) -> int:
+    """Per-frame payload budget for the device encoder: 140 bytes per
+    block covers quantized noise at qscale 2 with escapes; a frame that
+    needs more is counted and packed on the host."""
+    return max(4096, n_mcu * 6 * 140)
 
-    device_entropy=True packs the Huffman bitstream on device too
-    (kernels/entropy_encode.py), so only final payload bytes cross the
-    host link; the default routes levels through the host/C packer.
 
-    quant="q60" selects the device-consistent quantizer (see
-    encode_transform); it routes through the levels path (the fused
-    segmented chain is single-matrix).
-    """
+@partial(jax.jit, static_argnames=("qscale", "quant", "max_bytes"))
+def encode_planes(y, cb, cr, qscale: int = 2, quant: str = "ffmpeg", *,
+                  max_bytes: int):
+    """Device encode chain: YUV420 planes -> (payload uint8
+    [F, max_bytes], lens int32 [F], levels int16 [F, M, 6, 64], ok)."""
     F, H, W = y.shape
     mb_w, mb_h = (W + 15) // 16, (H + 15) // 16
-    if quant == "q60":
-        levels = np.asarray(encode_transform(
-            jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), mb_w, mb_h,
-            qscale, quant="q60"))
-        return [huffman_encode_frame(levels[f]) for f in range(F)]
-    if device_entropy:
-        from ..pipeline.transcode import pick_segments
-        segs = pick_segments(mb_w * mb_h)
-        if jax.default_backend() != "cpu" and segs:
-            # zero-relayout Pallas chain (extract -> FDCT/quant ->
-            # Huffman pack in slab layout) + C framing.  Frames larger
-            # than the VMEM output budget split into `segs` lane-
-            # parallel segments (pipeline/transcode.py) so any geometry
-            # stays on device.  If a segment still overflows its word
-            # budget the C pass raises and we fall through to the host
-            # packer below.
-            from ..native import entropy_native as native
-            from ..pipeline.transcode import encode_planes_layout
-            qk = tuple(int(v) for v in _encoder_quant_qmat_np(qscale))
-            ms = mb_w * mb_h // segs
-            w_out = min(1664, 1024 * ((ms + 47) // 48))
-            words, bits = encode_planes_layout(
-                jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr),
-                mb_w, mb_h, qk, w_out=w_out, segs=segs)
-            try:
-                if segs == 1:
-                    return native.escape_frames(np.asarray(words),
-                                                np.asarray(bits))
-                return native.concat_escape_frames(np.asarray(words),
-                                                   np.asarray(bits), segs)
-            except ValueError:
-                pass  # a segment exceeded the word budget: host packer
-        from ..kernels.entropy_encode import encode_frames_device
-        levels_dev = encode_transform(
-            jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr),
-            mb_w, mb_h, qscale)
-        # worst case ~2.2 bytes/coeff incl. escapes; frames are tiny
-        max_bytes = max(4096, mb_w * mb_h * 6 * 140)
-        payload, lens = encode_frames_device(levels_dev, max_bytes=max_bytes)
-        payload, lens = np.asarray(payload), np.asarray(lens)
-        return [payload[f, :lens[f]].tobytes() for f in range(F)]
-    levels = np.asarray(encode_transform(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), mb_w, mb_h,
-        qscale))
-    return [huffman_encode_frame(levels[f]) for f in range(F)]
+    levels = encode_transform(y, cb, cr, mb_w, mb_h, qscale, quant=quant)
+    payload, lens = encode_frames_device(levels, max_bytes=max_bytes)
+    return payload, lens, levels, lens <= max_bytes
+
+
+def encode_frames(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                  qscale: int = 2, quant: str = "ffmpeg") -> list[bytes]:
+    """Encode YUV420 frames into AMV '00dc' payloads on the device.
+
+    quant="q60" selects the device-consistent quantizer (see
+    encode_transform)."""
+    F, H, W = y.shape
+    mb_w, mb_h = (W + 15) // 16, (H + 15) // 16
+    payload, lens, levels, ok = encode_planes(
+        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), qscale, quant,
+        max_bytes=encode_bytes_bound(mb_w * mb_h))
+    payload, lens, ok = np.asarray(payload), np.asarray(lens), np.asarray(ok)
+    out = [payload[f, :lens[f]].tobytes() for f in range(F)]
+    bad = np.flatnonzero(~ok)
+    if len(bad):
+        backend.count_host_fallback("encode", len(bad))
+        lv = np.asarray(levels)
+        for f in bad:
+            out[f] = huffman_encode_frame(lv[f])
+    return out

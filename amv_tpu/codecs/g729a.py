@@ -1,13 +1,13 @@
-"""Batched TPU G.729 Annex A decoder (JAX, bit-exact fixed point).
+"""Batched device G.729 Annex A decoder (JAX, bit-exact fixed point).
 
 The G.729 recurrence structure is stream-sequential (every frame updates
-LSF/gain/excitation memories), so the TPU axis of parallelism is the
+LSF/gain/excitation memories), so the device's axis of parallelism is the
 *stream batch*: B independent speech streams decode in lockstep, one
 `lax.scan` step per frame.  All per-sample recurrences (LP synthesis,
 adaptive-codebook interpolation with short lags, AGC, high-pass) are inner
 `lax.scan`/`fori_loop`s over <=160 steps on [B]-wide vectors; everything
 else (codebook gathers, correlations, FIR residual, tilt application) is
-fully parallel VPU work.
+fully parallel elementwise work.
 
 Semantics follow amv_tpu.verify.ref_g729 (itself differentially validated
 bit-exact against the compiled reference decoder, G.729/g729a_native.c);
@@ -75,13 +75,12 @@ def _mul_sh15(a, b):
     return hi * b * 2 + ((lo * b) >> 15)
 
 
-def _onehot_gather(x, idx, axis_size):
-    """x [B, L] gathered at per-row idx [B, K] -> [B, K], via a one-hot
-    contraction: TPU lowers per-row dynamic gathers poorly (serialized),
-    while compare+multiply+reduce is pure VPU work."""
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (1, 1, axis_size), 2)
-    onehot = (lanes == idx[:, :, None]).astype(jnp.int32)
-    return jnp.sum(x[:, None, :] * onehot, axis=2)
+def _masked_gather(x, idx, axis_size):
+    """x [B, L] gathered at per-row idx [B, K] -> [B, K]; an index
+    outside [0, axis_size) reads 0."""
+    valid = (idx >= 0) & (idx < axis_size)
+    got = jnp.take_along_axis(x, jnp.where(valid, idx, 0), axis=1)
+    return jnp.where(valid, got, 0)
 
 
 def av_log2_j(v):
@@ -291,8 +290,7 @@ def decode_ac_vector(exc, pitch_delay_int, pitch_delay_frac, off):
 
     One fused take_along_axis per sample (the 20 interpolation taps load
     as a single [B,20] gather; the per-term clip chain then runs on
-    registers) — 20x fewer gather ops than the naive form, which dominate
-    on TPU."""
+    registers) — 20x fewer gather ops than the naive form."""
     frac = -pitch_delay_frac
     neg = frac < 0
     frac = jnp.where(neg, frac + 3, frac)
@@ -310,7 +308,7 @@ def decode_ac_vector(exc, pitch_delay_int, pitch_delay_frac, off):
     coef = jnp.concatenate([c1, c2], axis=1)       # [B,20]
 
     def body(n, exc):
-        taps = _onehot_gather(exc, base + n + rel, EXC_LEN)      # [B,20]
+        taps = _masked_gather(exc, base + n + rel, EXC_LEN)      # [B,20]
         terms = taps * coef
         v = jnp.zeros(exc.shape[0], jnp.int32)
         # C accumulation order: (t1[0], t2[0], t1[1], t2[1], ...) with a
@@ -351,7 +349,7 @@ def fix_fc_vector(fc, pitch_delay, gain_pitch):
     """fc[i] += (fc[i-pd]*gp)>>14 for i>=pd, sequential in i (3.8/4.1.4)."""
     def body(i, fc):
         src_idx = jnp.maximum(i - pitch_delay, 0)
-        src = _onehot_gather(fc, src_idx[:, None], SUBFRAME)[:, 0]
+        src = _masked_gather(fc, src_idx[:, None], SUBFRAME)[:, 0]
         new = _i16(fc[:, i] + ((src * gain_pitch) >> 14))
         return fc.at[:, i].set(jnp.where(i >= pitch_delay, new, fc[:, i]))
     return jax.lax.fori_loop(0, SUBFRAME, body, fc)
@@ -435,14 +433,14 @@ def long_term_filter(residual, intT1):
     k = base[:, None, None] + k_off                       # [B,7,1]
     idx = PITCH_MAX - k + n_idx                           # [B,7,40]
     idx2 = idx.reshape(B, 7 * SUBFRAME)
-    lagged = _onehot_gather(res, idx2, res.shape[1]).reshape(B, 7, SUBFRAME)
+    lagged = _masked_gather(res, idx2, res.shape[1]).reshape(B, 7, SUBFRAME)
     cur = (res[:, None, PITCH_MAX:PITCH_MAX + SUBFRAME] >> 1)
     corr = jnp.sum((lagged >> 1) * cur, axis=2)           # [B,7]
     best = jnp.argmax(corr, axis=1)                       # first max
     corr_max = jnp.take_along_axis(corr, best[:, None], axis=1)[:, 0]
     intT0 = (base + best - 3)
     idx_t0 = PITCH_MAX - intT0[:, None] + jnp.arange(SUBFRAME)[None, :]
-    lag_t0 = _onehot_gather(res, idx_t0, res.shape[1]) >> 1
+    lag_t0 = _masked_gather(res, idx_t0, res.shape[1]) >> 1
     corr_t0 = jnp.sum(lag_t0 * lag_t0, axis=1)
     cur0 = res[:, PITCH_MAX:PITCH_MAX + SUBFRAME] >> 1
     corr_0 = jnp.sum(cur0 * cur0, axis=1)
@@ -459,7 +457,7 @@ def long_term_filter(residual, intT1):
         jnp.full_like(gl, 32768), 32768 + gl, 15))
     glgp_inv_glgp = 32768 - inv_glgp
     out = _i16((res[:, PITCH_MAX:PITCH_MAX + SUBFRAME] * inv_glgp[:, None] +
-                _onehot_gather(res, idx_t0, res.shape[1]) * glgp_inv_glgp[:, None])
+                _masked_gather(res, idx_t0, res.shape[1]) * glgp_inv_glgp[:, None])
                >> 15)
     return out, intT0
 
@@ -714,12 +712,9 @@ DECODE_CHUNK = 8
 def _decode_chain(st, parms_chunk):
     """Unrolled chain of DECODE_CHUNK frame steps in one program.
 
-    (An earlier round recorded "outer lax.scan costs a fixed ~9-11 s
-    per dispatch" — that reading was polluted; re-measured 2026-08-18
-    the scan is FASTER: 414.6K f/s for a 64-frame scan vs 325.9K for
-    host-pipelined 8-frame unrolled chunks, both device-resident.  The
-    unrolled chunk path is kept for arbitrary-T streaming decode where
-    one scan signature per T would recompile.)"""
+    The unrolled chunk path serves arbitrary-T streaming decode, where
+    one scan signature per T would recompile; decode_frames_scan is the
+    one-dispatch form for a known T."""
     outs = []
     for i in range(DECODE_CHUNK):
         st, pcm = decode_frame_batch(st, parms_chunk[i])
@@ -731,8 +726,7 @@ def _decode_chain(st, parms_chunk):
 def decode_frames_scan(st, parms):
     """lax.scan of the frame step: parms int32 [T, B, 16] ->
     (st, pcm int16 [T, B, 80]) in ONE dispatch.  Bit-identical to the
-    unrolled chain; 414.6K f/s @B=1024/T=64 on v5e (27% over the
-    8-frame chunk pipeline — one dispatch, one big schedule)."""
+    unrolled chain (one dispatch, one big schedule)."""
     def body(stc, pf):
         stc, pcm = decode_frame_batch(stc, pf)
         return stc, pcm

@@ -168,7 +168,7 @@ class G729Encoder:
     """Stateful single-stream encoder: encode_frame(80 samples) -> 10 bytes.
 
     Quality knobs (defaults = the measured r5 optimum on the HP-chain
-    metric, scripts/measure_g729_quality.py):
+    metric of tests/test_g729_encoder.py):
     * topk: closed-loop pitch candidates given the full FC+gain
       refinement (the r2 "top-2 measured worse" note was an artifact of
       the raw-input metric);
@@ -263,8 +263,7 @@ class G729Encoder:
         # spec 3.2.1: the asymmetric window's 40-sample cosine fall covers
         # 40 samples of the NEXT frame; without the lookahead the fall
         # lands on the current frame's tail and the LP fit lags the
-        # signal by ~half a subframe (r5 A/B: +0.6 dB HP-chain segSNR,
-        # scripts/measure_g729_quality.py)
+        # signal by ~half a subframe (r5 A/B: +0.6 dB HP-chain segSNR)
         if lookahead is None:
             # per-frame API callers without a buffered next frame keep
             # the r4 window (ends on real signal) — zero-filling the
@@ -635,8 +634,8 @@ def pack_parameters_batch(pn: np.ndarray) -> np.ndarray:
 
 
 QUALITY_PRESETS = {
-    # measured on the HP-chain metric, scripts/measure_g729_quality.py
-    # (2026-08-20, 3-fixture mean / worst):
+    # measured on the HP-chain metric of tests/test_g729_encoder.py
+    # (host encoder, 3-fixture mean / worst):
     #   fast  12.76 / 11.80 dB   (~0.04 s/frame)
     #   high  13.94 / 12.72 dB   (~0.23 s/frame)
     #   best  14.17 / 12.77 dB   (~0.35 s/frame)

@@ -9,7 +9,7 @@ AMV pipeline emits; these are the ones real-world inputs actually carry:
 * MS-ADPCM, wFormatTag 0x02 (adpcm.c:1041-1106).
 
 Both ADPCM flavors reset their codec state in every block header, so a
-whole stream decodes as one batched TPU dispatch with (block x channel)
+whole stream decodes as one batched device dispatch with (block x channel)
 lanes — the same parallelism gift as AMV's chunk headers.  The host only
 does layout: header split + nibble reorder.  Bit-exactness is gated
 against the scalar transliterations in `verify/ref_wav_audio.py`.

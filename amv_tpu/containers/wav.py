@@ -45,7 +45,7 @@ def read_pcm(path: str):
     Decodes the audio formats the reference's WAV/AVI ingest accepts:
     PCM u8/s16/s24/s32, A-law, mu-law (pcm.c:380-470), IMA-ADPCM-WAV
     (tag 0x11) and MS-ADPCM (tag 0x02) blocks (adpcm.c:983-1106) via
-    `codecs/wav_audio.py` (batched TPU block decode)."""
+    `codecs/wav_audio.py` (batched device block decode)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":

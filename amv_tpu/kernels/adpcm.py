@@ -1,4 +1,4 @@
-"""TPU IMA-ADPCM (AMV flavor) kernels.
+"""IMA-ADPCM (AMV flavor) kernels in plain JAX.
 
 Decode is reformulated from the reference's sequential per-sample loop
 (AMVmuxer/ffmpeg/libavcodec/adpcm.c:716-740, 1268-1290) into two
@@ -21,14 +21,16 @@ Two interchangeable decode implementations are provided (both bit-exact):
 `decode_nibbles` (associative, log-depth — best for few long chunks) and
 `decode_nibbles_scan` (single-pass lax.scan over samples with the state in
 registers — best for large chunk batches, where the associative form's
-~2*log2(n) full-array HBM passes dominate).  `decode_chunks` uses the scan.
+~2*log2(n) full-array passes dominate).  `decode_chunks` takes either
+by name; amv_tpu.backend picks one per platform from measurement.
 
 Chunks are independent by construction (each '01wb' chunk header carries
 its own {predictor, step_index}), so the batch dimension is free
 parallelism; multi-chip sharding shards the chunk axis.
 
 Encode (adpcm.c:219-227) has feedback through the quantizer, so it stays a
-`lax.scan`, batched across independent streams.
+`lax.scan`, batched across independent streams (the GPU runs the same
+recurrence as a Pallas kernel, adpcm_encode_triton.py).
 """
 
 from __future__ import annotations
@@ -110,17 +112,29 @@ def bytes_to_nibbles(data: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack([hi, lo], axis=-1).reshape(*d.shape[:-1], -1)
 
 
-@jax.jit
+DECODE_METHODS = ("scan", "associative")
+
+
+@partial(jax.jit, static_argnames=("method",))
 def decode_chunks(payload: jnp.ndarray, init_predictor: jnp.ndarray,
-                  init_step_index: jnp.ndarray) -> jnp.ndarray:
+                  init_step_index: jnp.ndarray,
+                  method: str = "scan") -> jnp.ndarray:
     """Decode a batch of equal-padded chunks.
 
     payload: uint8 [n_chunks, max_bytes] nibble bytes (without the 8-byte
              header; zero-padded past each chunk's real length — callers
              slice the valid prefix of each row afterwards).
+    method: "scan" (decode_nibbles_scan) or "associative"
+            (decode_nibbles); both are bit-exact.
     """
     nibbles = bytes_to_nibbles(payload)
-    return decode_nibbles_scan(nibbles, init_predictor, init_step_index)
+    init_predictor = init_predictor.astype(jnp.int32)
+    init_step_index = init_step_index.astype(jnp.int32)
+    if method == "scan":
+        return decode_nibbles_scan(nibbles, init_predictor, init_step_index)
+    if method == "associative":
+        return decode_nibbles(nibbles, init_predictor, init_step_index)
+    raise ValueError(f"unknown ADPCM decode method {method!r}")
 
 
 @jax.jit

@@ -1,4 +1,4 @@
-"""Device-side JPEG entropy decoder: symbol-sequential, frame-parallel.
+"""Plain JAX JPEG entropy decoder: symbol-sequential, frame-parallel.
 
 Huffman decode is bit-serial *within* a frame, but frames are independent:
 this decoder runs one `lax.while_loop` whose every iteration decodes one
@@ -12,6 +12,11 @@ reference's per-MCU loop (mjpegdec.c:659-736).
 The input is the unescaped scan (0xFF00 stuffing removed on host — a
 cheap byte pass) padded with zeros.  Semantics are identical to
 bitstream/entropy.py: levels in zigzag order, slot 0 = DC difference.
+A frame the C decoder would reject (an invalid code, a coefficient past
+position 63, a size-0 symbol other than EOB/ZRL, or a scan that does not
+finish within the step budget) comes back with ok False.  This is the
+CPU implementation and the reference for the GPU kernel
+(entropy_decode_cuda.py).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ def _dec_luts():
         s, l = T.build_decode_table(bits, vals)
         syms[t] = s
         lens[t] = l
-    return jnp.asarray(syms.reshape(-1)), jnp.asarray(lens.reshape(-1))
+    return syms.reshape(-1), lens.reshape(-1)
 
 
 _LUT_SYM, _LUT_LEN = _dec_luts()
@@ -48,20 +53,24 @@ def decode_scans_device(scans: jnp.ndarray, n_mcu: int,
                         max_steps: int = 0):
     """scans: uint8 [F, max_bytes] unescaped scan data (zero padded).
 
-    Returns levels int16 [F, n_mcu, 6, 64] (zigzag, slot0 = DC diff).
+    Returns (levels int16 [F, n_mcu, 6, 64] (zigzag, slot0 = DC diff),
+    ok bool [F]).
     """
     F, max_bytes = scans.shape
     n_blocks = n_mcu * 6
     if max_steps == 0:
         max_steps = max_bytes * 8 // 3 + 64  # min useful symbol ~3 bits
 
-    # pack bytes into big-endian u32 words for 2-gather 24-bit peeks
-    s = scans.astype(jnp.uint32)
+    # pack bytes into big-endian u32 words for 2-gather 24-bit peeks; two
+    # trailing zero words make reads past the row end see zeros, like the
+    # C reader's zero fill
+    s = jnp.pad(scans.astype(jnp.uint32), ((0, 0), (0, -max_bytes % 4 + 8)))
     words = ((s[:, 0::4] << 24) | (s[:, 1::4] << 16) |
              (s[:, 2::4] << 8) | s[:, 3::4])          # [F, W]
     n_words = words.shape[1]
 
     rows = jnp.arange(F)
+    lut_sym, lut_len = jnp.asarray(_LUT_SYM), jnp.asarray(_LUT_LEN)
 
     def peek32(bitpos):
         w = (bitpos >> 5).astype(jnp.int32)
@@ -80,13 +89,13 @@ def decode_scans_device(scans: jnp.ndarray, n_mcu: int,
                                    v.astype(jnp.int32)))
 
     # state: bitpos [F], block [F], pos [F] (0=expect DC, else next AC scan
-    # position), done [F], step counter
+    # position), bad [F] (malformed: the frame stops), step counter
     def cond(carry):
-        step, bitpos, block, pos, out_idx, out_val = carry
+        step, bitpos, block, pos, bad, out_idx, out_val = carry
         return (step < max_steps) & jnp.any(block < n_blocks)
 
     def body(carry):
-        step, bitpos, block, pos, out_idx, out_val = carry
+        step, bitpos, block, pos, bad, out_idx, out_val = carry
         active = block < n_blocks
         btype = block % 6
         luma = btype < 4
@@ -95,8 +104,8 @@ def decode_scans_device(scans: jnp.ndarray, n_mcu: int,
         pk = peek32(bitpos)
         peek16 = (pk >> 16).astype(jnp.int32)
         lut_i = tab * 65536 + peek16
-        sym = jnp.take(_LUT_SYM, lut_i)
-        ln = jnp.take(_LUT_LEN, lut_i)
+        sym = jnp.take(lut_sym, lut_i)
+        ln = jnp.take(lut_len, lut_i)
 
         # mantissa bits follow the code
         nbits = jnp.where(is_dc, sym, sym & 0xF)
@@ -118,22 +127,33 @@ def decode_scans_device(scans: jnp.ndarray, n_mcu: int,
                          n_blocks * 64)  # overflow slot
         consumed = ln + nbits
 
+        # malformed: invalid code, size-0 symbol other than EOB/ZRL, or a
+        # coefficient past scan position 63 (native/entropy.c rejects all)
+        is_level = (~is_dc) & (~is_eob) & (~is_zrl)
+        malformed = active & ((ln == 0) |
+                              (is_level & (((sym & 0xF) == 0) |
+                                           (new_pos_ac - 1 > 63))))
+        write = write & ~malformed
+
         # state transitions
-        hit63 = (~is_dc) & (~is_eob) & (~is_zrl) & (new_pos_ac - 1 >= 63)
+        hit63 = is_level & (new_pos_ac - 1 >= 63)
         end_block = is_eob | hit63
         pos_next = jnp.where(is_dc, 1,
                     jnp.where(is_zrl, pos + 16,
                      jnp.where(end_block, 0, new_pos_ac)))
-        block_next = jnp.where(active & end_block, block + 1, block)
+        block_next = jnp.where(malformed, n_blocks,
+                               jnp.where(active & end_block, block + 1, block))
         bitpos_next = jnp.where(active, bitpos + consumed, bitpos)
 
         # emit buffers are [max_steps, F]: each step writes one contiguous
         # row (the [F, max_steps] layout's column writes are lane-strided
         # and dominate the step cost)
+        dest = jnp.where(write, dest, n_blocks * 64)
         out_idx = out_idx.at[step].set(dest.astype(jnp.int32))
         out_val = out_val.at[step].set(
             jnp.where(write, level, 0).astype(jnp.int16))
-        return (step + 1, bitpos_next, block_next, pos_next, out_idx, out_val)
+        return (step + 1, bitpos_next, block_next, pos_next, bad | malformed,
+                out_idx, out_val)
 
     def body4(carry):
         # unroll 4 symbols per loop iteration: the per-iteration cost is
@@ -147,10 +167,11 @@ def decode_scans_device(scans: jnp.ndarray, n_mcu: int,
     out_idx0 = jnp.full((max_steps, F), n_blocks * 64, jnp.int32)
     out_val0 = jnp.zeros((max_steps, F), jnp.int16)
     carry = (jnp.int32(0), jnp.zeros(F, jnp.int32), jnp.zeros(F, jnp.int32),
-             jnp.zeros(F, jnp.int32), out_idx0, out_val0)
-    step, bitpos, block, pos, out_idx, out_val = jax.lax.while_loop(
+             jnp.zeros(F, jnp.int32), jnp.zeros(F, bool), out_idx0, out_val0)
+    step, bitpos, block, pos, bad, out_idx, out_val = jax.lax.while_loop(
         cond, body4, carry)
 
     flat = jnp.zeros((F, n_blocks * 64 + 1), jnp.int16)
     flat = flat.at[rows[:, None], out_idx.T].add(out_val.T)
-    return flat[:, :n_blocks * 64].reshape(F, n_mcu, 6, 64)
+    ok = (block >= n_blocks) & ~bad
+    return flat[:, :n_blocks * 64].reshape(F, n_mcu, 6, 64), ok

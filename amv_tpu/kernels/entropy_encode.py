@@ -1,4 +1,4 @@
-"""Device-side JPEG entropy encoder (Huffman pack on TPU).
+"""Device-side JPEG entropy encoder (Huffman pack in plain JAX).
 
 Unlike decode, Huffman *encoding* has no bit-serial feedback (the only
 sequential dependency, the DC prediction chain, is a cumulative sum), so
@@ -101,7 +101,10 @@ def _coef_tokens(levels_zz, is_luma):
     run_rem = run16 & 15
     sym = (run_rem << 4) | nbits
     code, size = ac_entry(sym)
-    zrl_code, zrl_size = ac_entry(jnp.full_like(run16, 0xF0))
+    # ZRL is one symbol: pick its code per block, not by a gather over a
+    # constant index array (which XLA would constant-fold at compile time)
+    zrl_code = jnp.where(lum, ac_codes_l[0xF0], ac_codes_c[0xF0])
+    zrl_size = jnp.where(lum, ac_sizes_l[0xF0], ac_sizes_c[0xF0])
 
     # assemble MSB-first into a 64-bit value: [ZRL]*n + code + mantissa
     # build the token with two uint32 lanes (hi = first 32 bits), composed

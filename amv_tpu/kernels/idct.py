@@ -1,4 +1,4 @@
-"""Batched bit-exact integer IDCT (FFmpeg simple_idct) for TPU.
+"""Batched bit-exact integer IDCT (FFmpeg simple_idct) in plain JAX.
 
 Replicates AMVmuxer/ffmpeg/libavcodec/simple_idct.c:78-253 exactly:
 

@@ -3,7 +3,7 @@
 The reference CLI resamples any input audio to the AMV rate with
 `-ar 22050` (ffmpeg.c do_audio_out -> av_resample, resample2.c:
 polyphase windowed-sinc FIR, 16 taps, 1024 phases, 14/15-bit fixed
-point).  This is the TPU-native equivalent: the same polyphase
+point).  This is the device equivalent: the same polyphase
 structure — a [1024, 16] int32 Kaiser-windowed-sinc filter bank, per
 output sample one bank row (by phase) dotted with a 16-sample input
 window — expressed as 16 static gathers + integer MACs so XLA fuses it

@@ -3,7 +3,7 @@
 The reference CLI feeds arbitrary input video through sws_scale to the
 fixed AMV encode size (`ffmpeg.c:757,1684`; canonical `-s 160x120`,
 AMVmuxer/Makefile:25-27).  This module provides that capability
-TPU-natively: separable polyphase filtering, expressed as a handful of
+on the device: separable polyphase filtering, expressed as a handful of
 static gathers + integer multiply-accumulates per axis so XLA keeps the
 whole thing fused and the result is bit-reproducible on any backend
 (swscale itself uses 14-bit fixed-point accumulation, swscale.c; we

@@ -3,11 +3,11 @@
  * MJPEG-variant, plus scalar IMA-ADPCM reference.
  *
  * Two roles:
- *  1. fast host-side Huffman scan decode/encode feeding the TPU kernels
+ *  1. fast host-side Huffman scan decode/encode feeding the device kernels
  *     (the bit-serial boundary of the pipeline);
  *  2. a faithful single-core C implementation of the full reference decode
- *     and encode paths (entropy + integer DCT + assembly), used as the
- *     benchmark "1x single-core C" anchor that BASELINE.md requires.
+ *     and encode paths (entropy + integer DCT + assembly), the byte oracle
+ *     of the device chain and a single-core C anchor for its speed.
  *
  * Algorithms reimplemented from the reference semantics (sp5xdec.c,
  * mjpegdec.c decode_block/mjpeg_decode_scan, simple_idct.c, jfdctint.c,
@@ -385,65 +385,6 @@ API int64_t amv_escape_frames(const int32_t *words, int64_t w_out,
     return 0;
 }
 
-/* Segment-merge variant of amv_escape_frames: each output frame is the
- * bit-concatenation of `segs` consecutive (words, bits) rows — the
- * device encoder splits frames > ~80 MCUs across lanes (with per-lane
- * initial DC predictors) to keep its output block VMEM-resident, and
- * this pass splices the per-segment bitstreams back together at the
- * exact bit boundaries before stuffing/escaping/framing
- * (ff_mjpeg_encode_stuffing + escape_FF + SOI/EOI, mjpegenc.c:282-355).
- * Returns 0 or -(frame+1) on row overflow. */
-API int64_t amv_concat_escape_frames(const int32_t *words, int64_t w_out,
-                                     const int64_t *bits, int n_frames,
-                                     int segs, uint8_t *dst,
-                                     int64_t dst_stride, int64_t *out_lens) {
-    for (int f = 0; f < n_frames; f++) {
-        uint8_t *d = dst + (size_t)f * dst_stride;
-        int64_t j = 0;
-        d[j++] = 0xFF; d[j++] = 0xD8;                    /* SOI */
-        uint64_t acc = 0; int nacc = 0;
-        int64_t total = 0;
-        for (int s = 0; s <= segs; s++) {
-            const int32_t *w = NULL;
-            int64_t nbits = 0;
-            if (s < segs) {
-                int64_t r = (int64_t)f * segs + s;
-                w = words + (size_t)r * w_out;
-                nbits = bits[r];
-                total += nbits;
-                if ((total + 7) / 8 + 16 > dst_stride) return -(f + 1);
-            } else {
-                /* 1-bit stuffing pad to the byte boundary */
-                int pad = (int)((8 - (total & 7)) & 7);
-                if (pad) { acc = (acc << pad) | ((1u << pad) - 1); nacc += pad; }
-            }
-            for (int64_t i = 0; i < nbits; i += 32) {
-                int n = (int)((nbits - i < 32) ? nbits - i : 32);
-                uint32_t v = (uint32_t)w[i >> 5] >> (32 - n);
-                acc = (acc << n) | v;
-                nacc += n;
-                while (nacc >= 8) {
-                    nacc -= 8;
-                    uint8_t b = (uint8_t)(acc >> nacc);
-                    if (j + 4 > dst_stride) return -(f + 1);
-                    d[j++] = b;
-                    if (b == 0xFF) d[j++] = 0x00;        /* escape_FF */
-                }
-            }
-        }
-        while (nacc >= 8) {                              /* drain the pad */
-            nacc -= 8;
-            uint8_t b = (uint8_t)(acc >> nacc);
-            if (j + 4 > dst_stride) return -(f + 1);
-            d[j++] = b;
-            if (b == 0xFF) d[j++] = 0x00;
-        }
-        d[j++] = 0xFF; d[j++] = 0xD9;                    /* EOI */
-        out_lens[f] = j;
-    }
-    return 0;
-}
-
 API int amv_decode_frames(const uint8_t *payload_blob, const int64_t *offsets,
                           const int64_t *sizes, int n_frames, int n_mcu,
                           int16_t *out_levels) {
@@ -569,8 +510,8 @@ API int amv_decode_scans_custom(const uint8_t *scan_blob,
 /* ------------------------------------------------------------------ */
 /* Segment-boundary index pass (r4 verdict item 3: lane-parallel       */
 /* segmented DECODE needs the bit offset of every (n_mcu/segs)-MCU     */
-/* boundary; the encode side never needed one because it produces the  */
-/* bits itself, mjpegenc.c:437-450 / amv_concat_escape_frames above).  */
+/* boundary; the encode side never needs one because it produces the   */
+/* bits itself, mjpegenc.c:437-450).                                   */
 /* ------------------------------------------------------------------ */
 
 /* Token-walk one unescaped scan with the fixed AMV tables, recording
@@ -672,83 +613,6 @@ API int64_t amv_unescape_segment_frames(
     }
     free(tmp);
     return maxseg;
-}
-
-/* Coefficient-major (SoA) variant: coefficient i of block n lands at
- * out[i*stride + n].  Same decode work as decode_scan_levels — only the
- * store addressing differs — and it is the natural input layout of the
- * TPU fused transcode kernel (kernels/transcode_pallas.py), removing the
- * device-side [N,64]->[64,N] transpose from the hot path.  Caller zeroes. */
-static int decode_scan_levels_soa(const uint8_t *scan, size_t scan_len,
-                                  int n_mcu, int16_t *out, int64_t stride) {
-    BitReader br;
-    br_init(&br, scan, scan_len);
-    for (int m = 0; m < n_mcu; m++) {
-        for (int b = 0; b < 6; b++) {
-            int luma = b < 4;
-            DecTable *dc = luma ? &dt_dc_l : &dt_dc_c;
-            DecTable *ac = luma ? &dt_ac_l : &dt_ac_c;
-            int16_t *col = out + (size_t)m * 6 + b;
-            uint32_t peek = br_peek16(&br);
-            uint32_t ent = dc->e1[peek >> 8];
-            if (!ent) ent = dc->e[peek];
-            int len = (int)(ent & 31);
-            if (!len) return -(int)(m * 6 + b + 1);
-            int sym = (int)(ent >> 5);
-            br_skip(&br, len);
-            col[0] = sym ? (int16_t)br_get_xbits_nf(&br, sym) : 0;
-            int i = 0;
-            for (;;) {
-                peek = br_peek16(&br);
-                ent = ac->e1[peek >> 8];
-                if (!ent) ent = ac->e[peek];
-                len = (int)(ent & 31);
-                if (!len) return -(int)(m * 6 + b + 1);
-                sym = (int)(ent >> 5);
-                br_skip(&br, len);
-                if (sym == 0x00) break;          /* EOB */
-                int run = sym >> 4, size = sym & 0xF;
-                if (size == 0) {
-                    if (run != 15) return -(int)(m * 6 + b + 1);
-                    i += 16;                      /* ZRL */
-                    continue;
-                }
-                int32_t level = br_get_xbits_nf(&br, size);
-                i += run + 1;
-                if (i > 63) return -(int)(m * 6 + b + 1);
-                col[(int64_t)i * stride] = (int16_t)level;
-                if (i == 63) break;               /* no EOB after pos 63 */
-            }
-        }
-    }
-    return 0;
-}
-
-API int amv_decode_frames_soa(const uint8_t *payload_blob,
-                              const int64_t *offsets, const int64_t *sizes,
-                              int n_frames, int n_mcu,
-                              int16_t *out_levels /* [64, n_frames*n_mcu*6],
-                                                     pre-zeroed */) {
-    ensure_tables();
-    int64_t stride = (int64_t)n_frames * n_mcu * 6;
-    size_t max_sz = 0;
-    for (int f = 0; f < n_frames; f++)
-        if ((size_t)sizes[f] > max_sz) max_sz = (size_t)sizes[f];
-    uint8_t *tmp = (uint8_t *)malloc(max_sz + 64);
-    if (!tmp) return -1000000;
-    int rc = 0;
-    for (int f = 0; f < n_frames; f++) {
-        const uint8_t *p = payload_blob + offsets[f];
-        int64_t sz = sizes[f];
-        if (sz < 4) { rc = -2000000 - f; break; }
-        size_t scan_len = unescape(p + 2, (size_t)sz - 4, tmp);
-        int r = decode_scan_levels_soa(tmp, scan_len, n_mcu,
-                                       out_levels + (size_t)f * n_mcu * 6,
-                                       stride);
-        if (r < 0) { rc = r - 3000000; break; }
-    }
-    free(tmp);
-    return rc;
 }
 
 /* ------------------------------------------------------------------ */

@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
@@ -18,7 +19,25 @@ _SO = os.path.join(_DIR, "libamventropy.so")
 
 
 def _build():
-    subprocess.run(["make", "-C", _DIR], check=True, capture_output=True)
+    """Compile entropy.c into _SO with the system C compiler (host-tuned
+    codegen when the compiler takes -march=native).  The library is
+    written under a temporary name and renamed into place, so processes
+    that build at the same time never load a half-written file."""
+    cc = os.environ.get("CC", "cc")
+    flags = ["-O3", "-fPIC", "-shared", "-fvisibility=hidden", "-Wall"]
+    if subprocess.run([cc, "-march=native", "-E", "-xc", os.devnull],
+                      capture_output=True).returncode == 0:
+        flags.append("-march=native")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+    os.close(fd)
+    try:
+        subprocess.run([cc, *flags, "-o", tmp,
+                        os.path.join(_DIR, "entropy.c")],
+                       check=True, capture_output=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 if not os.path.exists(_SO) or (
@@ -74,9 +93,6 @@ def decode_frames(payloads: list[bytes], n_mcu: int) -> np.ndarray:
     return out
 
 
-_lib.amv_decode_frames_soa.restype = ctypes.c_int
-_lib.amv_decode_frames_soa.argtypes = _lib.amv_decode_frames.argtypes
-
 _lib.amv_unescape_frames.restype = ctypes.c_int64
 _lib.amv_unescape_frames.argtypes = [
     ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
@@ -110,46 +126,6 @@ def escape_frames(words: np.ndarray, bits: np.ndarray) -> list[bytes]:
         lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
     if rc != 0:
         raise ValueError(f"native escape failed (rc={rc})")
-    return [dst[f, :lens[f]].tobytes() for f in range(F)]
-
-
-_lib.amv_concat_escape_frames.restype = ctypes.c_int64
-_lib.amv_concat_escape_frames.argtypes = [
-    ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-    ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-    ctypes.POINTER(ctypes.c_int64)]
-
-
-def concat_escape_frames(words: np.ndarray, bits: np.ndarray,
-                         segs: int) -> list[bytes]:
-    """Segmented-encode merge: rows f*segs..f*segs+segs-1 of (words,
-    bits) are bit-concatenated into frame f's scan, then stuffed/escaped/
-    framed like escape_frames.  The device encoder splits big frames
-    across lanes (pipeline/transcode.py encode segmentation); this is
-    the host splice that makes the result byte-identical to a
-    whole-frame encode."""
-    words = np.ascontiguousarray(words, np.int32)
-    bits64 = np.ascontiguousarray(bits, np.int64)
-    rows, w_out = words.shape
-    assert rows % segs == 0, (rows, segs)
-    if (bits64 > w_out * 32).any():
-        # the kernel drops words past w_out while still counting their
-        # bits; surface the overflow like escape_frames does so callers
-        # can fall back to the host packer
-        raise ValueError("segment bit count exceeds the word budget "
-                         f"(w_out={w_out})")
-    F = rows // segs
-    stride = segs * w_out * 4 * 2 + 16
-    dst = np.zeros((F, stride), np.uint8)
-    lens = np.zeros(F, np.int64)
-    rc = _lib.amv_concat_escape_frames(
-        words.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), w_out,
-        bits64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), F, segs,
-        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), stride,
-        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    if rc != 0:
-        raise ValueError(f"native concat escape failed (rc={rc})")
     return [dst[f, :lens[f]].tobytes() for f in range(F)]
 
 
@@ -274,25 +250,6 @@ def decode_scans_custom(scans: list[bytes], n_mcu: int,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
     if rc != 0:
         raise ValueError(f"native custom-table decode failed (rc={rc})")
-    return out
-
-
-def decode_frames_soa(payloads: list[bytes], n_mcu: int) -> np.ndarray:
-    """Decode -> coefficient-major int16 [64, F*n_mcu*6] (zigzag rows):
-    the fused transcode kernel's native input layout, emitted directly
-    by the C store stride (no transpose anywhere)."""
-    blob = b"".join(payloads)
-    offsets = np.zeros(len(payloads), dtype=np.int64)
-    sizes = np.array([len(p) for p in payloads], dtype=np.int64)
-    np.cumsum(sizes[:-1], out=offsets[1:])
-    out = np.zeros((64, len(payloads) * n_mcu * 6), dtype=np.int16)
-    rc = _lib.amv_decode_frames_soa(
-        blob, offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        len(payloads), n_mcu,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
-    if rc != 0:
-        raise ValueError(f"native huffman decode failed (rc={rc})")
     return out
 
 

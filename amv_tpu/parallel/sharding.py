@@ -1,18 +1,17 @@
-"""Multi-chip sharding for the AMV codec pipeline.
+"""Multi-device sharding for the AMV codec pipeline.
 
 The codec has no cross-frame or cross-chunk state (video frames are
 independent intra-only pictures; each audio chunk carries its own codec
-state), so scaling is pure data parallelism over ICI:
+state; each speech stream is its own recurrence), so scaling is pure
+data parallelism: a 1-D 'dp' mesh over frames, chunks or streams, with
+zero collectives.  The reference has no distributed runtime at all
+(SURVEY.md §2.5).
 
-* 'dp' axis: frames / audio chunks sharded across chips;
-* 'sp' axis (sequence-parallel analog): the MCU axis within a frame is
-  sharded for very large frames, with the DC-prediction cumulative sum as
-  the only cross-shard dependency (XLA lowers the sharded cumsum to a
-  log-depth collective chain over ICI).
-
-The reference has no distributed runtime at all (SURVEY.md §2.5); this
-module is the TPU-native replacement designed per the scaling-book recipe:
-pick a mesh, annotate in/out shardings, let XLA insert collectives.
+Chains that contain a custom kernel (the GPU Huffman decoder is a
+jax.ffi call, the ADPCM encoder a Pallas call) have no partitioning
+rule, so they are mapped explicitly with shard_map: each device runs the
+whole chain on its local frames.  Plain XLA stages shard through jit
+in/out shardings.
 """
 
 from __future__ import annotations
@@ -20,89 +19,93 @@ from __future__ import annotations
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import backend
 from ..codecs.amv_video import decode_transform, encode_transform
 from ..kernels import adpcm as KA
 
 
-def make_mesh(devices=None, dp: int | None = None, sp: int | None = None) -> Mesh:
-    """Build a 2D ('dp', 'sp') mesh over the given devices."""
+def make_mesh(devices=None) -> Mesh:
+    """A 1-D ('dp',) mesh over the given devices (default: all)."""
     if devices is None:
         devices = jax.devices()
-    n = len(devices)
-    if dp is None or sp is None:
-        sp = 2 if n % 2 == 0 and n > 1 else 1
-        dp = n // sp
-    arr = np.asarray(devices[:dp * sp]).reshape(dp, sp)
-    return Mesh(arr, ("dp", "sp"))
+    return Mesh(np.asarray(devices), ("dp",))
+
+
+def _data_parallel(fn, mesh: Mesh, n_in: int, n_out: int):
+    """jit(shard_map(fn)) with every input and output split on 'dp'."""
+    spec = P("dp")
+    out_specs = spec if n_out == 1 else (spec,) * n_out
+    return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(spec,) * n_in,
+                                 out_specs=out_specs, check_vma=False))
 
 
 def sharded_decode_step(mesh: Mesh, mb_w: int, mb_h: int,
                         width: int, height: int):
-    """Jitted video decode transform with frames on dp, MCUs on sp."""
-    in_s = NamedSharding(mesh, P("dp", "sp"))
-    out_s = NamedSharding(mesh, P("dp"))
+    """Jitted video decode transform with frames sharded on dp."""
+    s = NamedSharding(mesh, P("dp"))
     fn = partial(decode_transform, mb_w=mb_w, mb_h=mb_h,
                  width=width, height=height)
-    return jax.jit(fn, in_shardings=(in_s,),
-                   out_shardings=(out_s, out_s, out_s))
+    return jax.jit(fn, in_shardings=(s,), out_shardings=(s, s, s))
 
 
 def sharded_encode_step(mesh: Mesh, mb_w: int, mb_h: int, qscale: int = 2):
     """Jitted video encode transform with frames sharded on dp."""
-    in_s = NamedSharding(mesh, P("dp"))
-    out_s = NamedSharding(mesh, P("dp", "sp"))
+    s = NamedSharding(mesh, P("dp"))
     fn = partial(encode_transform, mb_w=mb_w, mb_h=mb_h, qscale=qscale)
-    return jax.jit(fn, in_shardings=(in_s, in_s, in_s),
-                   out_shardings=out_s)
+    return jax.jit(fn, in_shardings=(s, s, s), out_shardings=s)
 
 
-def sharded_adpcm_decode(mesh: Mesh):
-    """Jitted ADPCM decode with chunks sharded on dp."""
-    chunk_s = NamedSharding(mesh, P("dp"))
-    return jax.jit(KA.decode_chunks,
-                   in_shardings=(chunk_s, chunk_s, chunk_s),
-                   out_shardings=chunk_s)
+def sharded_transcode_step(mesh: Mesh, qscale: int = 2):
+    """Jitted fused transform (pipeline.transcode.transcode_levels_fused)
+    with frames sharded on dp: even the DC-prediction cumsum is
+    per-frame, so each device transcodes its frames independently."""
+    from ..pipeline.transcode import transcode_levels_fused
+    s = NamedSharding(mesh, P("dp"))
+    fn = partial(transcode_levels_fused, qscale=qscale)
+    return jax.jit(fn, in_shardings=(s,), out_shardings=(s, s))
 
 
 def sharded_entropy_decode(mesh: Mesh, n_mcu: int):
-    """Jitted device Huffman decode with frames sharded on dp.
+    """Device Huffman decode (backend.entropy_decoder) with frames sharded
+    on dp: scans are independent bitstreams.  Returns (levels, ok)."""
+    def fn(scans):
+        return backend.entropy_decoder()(scans, n_mcu)
+    return _data_parallel(fn, mesh, 1, 2)
 
-    Scans are independent bitstreams, so the entropy stage shards with
-    zero collectives (each chip's symbol scan walks its own frames).
-    The XLA symbol-scan kernel is used here because it runs on any
-    backend; on real TPU the Pallas block-synchronized kernel
-    (kernels/entropy_decode_pallas.py) is the production path and
-    shards identically (frame chunks are grid-parallel).
-    """
-    from ..kernels.entropy_decode import decode_scans_device
-    in_s = NamedSharding(mesh, P("dp"))
-    out_s = NamedSharding(mesh, P("dp"))
-    fn = partial(decode_scans_device, n_mcu=n_mcu)
-    return jax.jit(fn, in_shardings=(in_s,), out_shardings=out_s)
+
+def sharded_transcode_scans(mesh: Mesh, **kw):
+    """The complete device transcode chain (pipeline.transcode
+    .transcode_scans: Huffman decode, transform, Huffman encode with
+    framing) with frames sharded over the mesh; kw are its keyword
+    arguments.  Returns (payload, lens, ok) like the unsharded chain."""
+    from ..pipeline.transcode import transcode_scans
+    return _data_parallel(partial(transcode_scans, **kw), mesh, 1, 3)
+
+
+def sharded_adpcm_decode(mesh: Mesh):
+    """ADPCM chunk decode (backend.adpcm_decoder) with chunks sharded on
+    dp."""
+    def fn(payload, pred, sidx):
+        return backend.adpcm_decoder()(payload, pred, sidx)
+    return _data_parallel(fn, mesh, 3, 1)
 
 
 def sharded_adpcm_encode(mesh: Mesh):
-    """Jitted ADPCM encode scan with streams sharded on dp.
-
-    Like decode, each chunk carries its own {predictor, step_index}
-    state, so encode shards with zero collectives."""
-    s = NamedSharding(mesh, P("dp"))
-    return jax.jit(KA.encode_samples, in_shardings=(s, s, s),
-                   out_shardings=(s, s))
+    """ADPCM stream encode (backend.adpcm_encoder) with streams sharded
+    on dp: each stream carries its own {prev_sample, step_index}."""
+    def fn(samples, reset, sidx):
+        return backend.adpcm_encoder()(samples, reset, sidx)
+    return _data_parallel(fn, mesh, 3, 2)
 
 
 def sharded_g729_decode_chain(mesh: Mesh):
     """Jitted G.729A frame-chain decoder with streams sharded on dp.
 
-    Speech streams are independent recurrences (state is per-stream,
-    SURVEY.md §5 long-context mapping), so the batch axis shards with
-    zero collectives; the frame axis stays sequential on-chip.
     Takes (state pytree [B,...], parms int32 [T, B, 16]) like
-    codecs.g729a._decode_chain."""
+    codecs.g729a._decode_chain; the frame axis stays sequential."""
     from ..codecs.g729a import _decode_chain
     st_s = NamedSharding(mesh, P("dp"))
     parms_s = NamedSharding(mesh, P(None, "dp"))
@@ -112,8 +115,7 @@ def sharded_g729_decode_chain(mesh: Mesh):
 
 def sharded_g729_decode_scan(mesh: Mesh):
     """Jitted lax.scan G.729A decoder (one dispatch for T frames,
-    codecs.g729a.decode_frames_scan) with streams sharded on dp —
-    the production serving shape: scan on-chip, batch across chips."""
+    codecs.g729a.decode_frames_scan) with streams sharded on dp."""
     from ..codecs.g729a import decode_frames_scan
     st_s = NamedSharding(mesh, P("dp"))
     parms_s = NamedSharding(mesh, P(None, "dp"))
@@ -134,125 +136,9 @@ def sharded_g729_encode_scan(mesh: Mesh):
 
 def sharded_g729_encode_step(mesh: Mesh):
     """Jitted G.729A encoder frame step with streams sharded on dp.
-
-    The batched encoder (codecs.g729a_encoder_tpu.encode_frame_batch)
-    carries only per-stream state (decoder-shadow pytree + input
-    history), so like the decoder chain it shards on the stream axis
-    with zero collectives.  Takes (state pytree [B,...], hist [B,160],
-    samples [B,80]) and returns (state, hist, parm [B,16])."""
+    Takes (state pytree [B,...], hist [B,160], samples [B,80]) and
+    returns (state, hist, parm [B,16])."""
     from ..codecs.g729a_encoder_tpu import encode_frame_batch
     s = NamedSharding(mesh, P("dp"))
     return jax.jit(encode_frame_batch.__wrapped__,
                    in_shardings=(s, s, s), out_shardings=(s, s, s))
-
-
-def sharded_complete_transcode(mesh: Mesh, n_mcu: int, qmat_key,
-                               w_out: int = 1024, interpret: bool = False,
-                               win_fetch: int = 64, win_emit: int = 64,
-                               segs: int = 1,
-                               hbm_decode: bool | None = None):
-    """Complete zero-relayout device transcode (unescaped scan bytes ->
-    re-encoded scan words + bit counts) with frames sharded over the
-    whole mesh.
-
-    This is the production path (pipeline.transcode
-    transcode_complete_layout: Pallas Huffman decode + in-layout fused
-    transform + Pallas Huffman encode).  A pallas_call is a single
-    opaque custom call to XLA's SPMD partitioner, so the chain is
-    mapped explicitly with shard_map; frames are independent
-    bitstreams, so each shard runs the full chain on its local frames
-    with zero collectives.  Local frame counts pad to the kernel's
-    1024-lane chunk internally.
-    """
-    from jax.experimental.shard_map import shard_map
-    from ..pipeline.transcode import transcode_complete_layout
-
-    fn = partial(transcode_complete_layout, n_mcu=n_mcu, qmat_key=qmat_key,
-                 w_out=w_out, interpret=interpret, win_fetch=win_fetch,
-                 win_emit=win_emit, segs=segs, hbm_decode=hbm_decode)
-    spec = jax.sharding.PartitionSpec(("dp", "sp"))
-    mapped = shard_map(fn, mesh=mesh, in_specs=(spec,),
-                       out_specs=(spec, spec), check_rep=False)
-    return jax.jit(mapped)
-
-
-def sharded_complete_transcode_async(mesh: Mesh, n_mcu: int, qmat_key,
-                                     w_out: int = 1024,
-                                     interpret: bool = False,
-                                     win_fetch: int = 64,
-                                     win_emit: int = 64, segs: int = 1,
-                                     hbm_decode: bool | None = None,
-                                     sb: int = 8):
-    """The round-3 lane-async complete chain (dense async Huffman decode
-    + in-layout transform + dense async Huffman encode), frames sharded
-    over the whole mesh via shard_map.
-
-    sb: per-shard sublane width — size it with pipeline.transcode.pick_sb
-    on the PER-SHARD frame count (batch // n_devices), not the global
-    batch: each shard pads its local frames to sb*128 lanes.
-
-    Returns (words, bits, ok_per_shard int32 [n_shards]): every shard
-    entry must be 1, else some shard overflowed its iteration budget
-    and the caller falls back to the lockstep chain."""
-    from jax.experimental.shard_map import shard_map
-    from ..pipeline.transcode import transcode_complete_async
-
-    def fn(scans):
-        words, bits, ok = transcode_complete_async(
-            scans, n_mcu=n_mcu, qmat_key=qmat_key, w_out=w_out,
-            interpret=interpret, win_fetch=win_fetch, win_emit=win_emit,
-            segs=segs, enc="async", hbm_decode=hbm_decode, sb=sb)
-        return words, bits, ok.astype(jnp.int32).reshape(1)
-
-    spec = jax.sharding.PartitionSpec(("dp", "sp"))
-    mapped = shard_map(fn, mesh=mesh, in_specs=(spec,),
-                      out_specs=(spec, spec, spec), check_rep=False)
-    return jax.jit(mapped)
-
-
-def sharded_decode_scans(mesh: Mesh, n_mcu: int, interpret: bool = False,
-                         win_fetch: int = 64):
-    """Zero-relayout device decode chain (scan bytes -> pixel blocks)
-    with frames sharded over the whole mesh via shard_map (see
-    sharded_complete_transcode for why shard_map, not pjit)."""
-    from jax.experimental.shard_map import shard_map
-    from ..pipeline.transcode import decode_scans_layout
-
-    fn = partial(decode_scans_layout, n_mcu=n_mcu, interpret=interpret,
-                 win_fetch=win_fetch)
-    spec = jax.sharding.PartitionSpec(("dp", "sp"))
-    mapped = shard_map(fn, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                       check_rep=False)
-    return jax.jit(mapped)
-
-
-def sharded_encode_planes(mesh: Mesh, mb_w: int, mb_h: int, qmat_key,
-                          w_out: int = 1024, interpret: bool = False,
-                          win_emit: int = 64):
-    """Zero-relayout device encode chain (YUV planes -> scan words) with
-    frames sharded over the whole mesh via shard_map."""
-    from jax.experimental.shard_map import shard_map
-    from ..pipeline.transcode import encode_planes_layout
-
-    fn = partial(encode_planes_layout, mb_w=mb_w, mb_h=mb_h,
-                 qmat_key=qmat_key, w_out=w_out, interpret=interpret,
-                 win_emit=win_emit)
-    spec = jax.sharding.PartitionSpec(("dp", "sp"))
-    mapped = shard_map(fn, mesh=mesh, in_specs=(spec, spec, spec),
-                       out_specs=(spec, spec), check_rep=False)
-    return jax.jit(mapped)
-
-
-def sharded_transcode_step(mesh: Mesh, qscale: int = 2):
-    """Jitted fused transcode (pipeline.transcode.transcode_levels_fused)
-    with frames sharded on dp.
-
-    The fused kernel is embarrassingly parallel over blocks — even the
-    DC-prediction cumsum is per-frame — so the flagship transcode path
-    scales with zero cross-chip collectives: each chip transcodes its
-    frame shard independently.
-    """
-    from ..pipeline.transcode import transcode_levels_fused
-    in_s = NamedSharding(mesh, P("dp"))
-    fn = partial(transcode_levels_fused, qscale=qscale)
-    return jax.jit(fn, in_shardings=(in_s,), out_shardings=(in_s, in_s))

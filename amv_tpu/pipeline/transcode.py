@@ -1,623 +1,170 @@
 """Device-resident AMV transcode: re-encode with minimal host traffic.
 
-The decode->re-encode path keeps every pixel on the device: host work is
-only the (inherently serial) Huffman scan *decode* plus container I/O;
-dequant, IDCT, re-FDCT, quantization and the Huffman *encode* all run on
-the TPU, so per frame only ~3KB of input bitstream and ~3.6KB of output
-bitstream cross the host link.
+One chain runs on every platform (kernels chosen by amv_tpu.backend):
+
+1. host: C unescape of each '00dc' payload into zero-padded scan rows;
+2. device: Huffman decode (backend.entropy_decoder);
+3. device: DC prediction cumsum, dequant, IDCT, FDCT and re-quantization
+   (transcode_levels_fused on MB-aligned frames in ffmpeg quant mode,
+   else the two-stage decode_transform + encode_transform);
+4. device: Huffman encode with stuffing, 0xFF escaping and SOI/EOI
+   framing (kernels/entropy_encode.py:encode_frames_device);
+5. host: RIFF mux.
+
+Per frame only the input scan and the output payload cross the host
+link.  A frame whose scan is malformed, or whose output overflows the
+byte budget, is re-encoded on the host and counted in
+backend.host_fallbacks["transcode"].
 
 This is the throughput-oriented API surface of the framework (the role
-the reference's `ffmpeg -i in.amv -f amv out.amv` would play), and the
-shape of the benchmark's device-resident headline.
+the reference's `ffmpeg -i in.amv -f amv out.amv` plays).
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..bitstream.entropy import huffman_decode_frames
-from ..codecs import amv_audio
-from ..codecs.amv_video import decode_transform, encode_transform
+from .. import backend
+from ..bitstream import jpeg_tables as T
+from ..bitstream.entropy import huffman_decode_frames, huffman_encode_frame
+from ..codecs.amv_video import (_QM_RASTER, _encoder_quant_qmat_np,
+                                decode_transform, encode_transform)
 from ..containers import riff
+from ..kernels import fdct as KF
+from ..kernels import idct as KI
 from ..kernels.entropy_encode import encode_frames_device
+from ..native import entropy_native as native
 
 
 @partial(jax.jit, static_argnames=("qscale",))
 def transcode_levels_fused(levels_zz, qscale=2):
-    """Fused Pallas transcode: zigzag levels -> re-quantized zigzag levels
-    (+ decoded pixel blocks), one VMEM pass for dequant/IDCT/FDCT/quant.
+    """Fused transcode: zigzag levels -> re-quantized zigzag levels
+    (+ decoded pixel blocks), without assembling display planes.
 
-    Exploits that decode's MCU->plane assembly and encode's plane->MCU
-    extraction are exact inverses (incl. the AMV flip) on MB-aligned
-    frames, so no pixel ever leaves block layout.  Bit-exact with
-    decode_transform + encode_transform for 16-aligned width/height
-    (tests/test_transcode_pallas.py); for other sizes the two paths differ
-    only in the invisible bottom/right pad blocks (two-stage re-replicates
-    edges, fused keeps the decoded pad).
+    Decode's MCU->plane assembly and encode's plane->MCU extraction are
+    exact inverses (incl. the AMV flip) on MB-aligned frames, so no pixel
+    leaves block layout: dequant + IDCT feed FDCT + quant directly.
+    Bit-exact with decode_transform + encode_transform for 16-aligned
+    width/height; for other sizes the two paths differ only in the
+    invisible bottom/right pad blocks (two-stage re-replicates edges,
+    fused keeps the decoded pad).
 
     Returns (levels2_zz int16 [F, M, 6, 64], pix uint8 [F, M, 6, 8, 8]).
     """
-    from ..bitstream import jpeg_tables as T
-    from ..codecs.amv_video import _encoder_quant_qmat_np
-    from ..kernels.transcode_pallas import transcode_zz
-
     F, M = levels_zz.shape[0], levels_zz.shape[1]
-    lvi = levels_zz.astype(jnp.int32)
+    lv = levels_zz.astype(jnp.int32)
     qdc_l = int(T.SP5X_QUANT_LUMA_ZZ[0])
     qdc_c = int(T.SP5X_QUANT_CHROMA_ZZ[0])
-    dc_y = (jnp.cumsum(lvi[:, :, :4, 0].reshape(F, M * 4) * qdc_l, axis=1)
+    dc_y = (jnp.cumsum(lv[:, :, :4, 0].reshape(F, M * 4) * qdc_l, axis=1)
             .reshape(F, M, 4) + 1024)
-    dc_cb = jnp.cumsum(lvi[:, :, 4, 0] * qdc_c, axis=1) + 1024
-    dc_cr = jnp.cumsum(lvi[:, :, 5, 0] * qdc_c, axis=1) + 1024
+    dc_cb = jnp.cumsum(lv[:, :, 4, 0] * qdc_c, axis=1) + 1024
+    dc_cr = jnp.cumsum(lv[:, :, 5, 0] * qdc_c, axis=1) + 1024
     dc = jnp.concatenate([dc_y, dc_cb[..., None], dc_cr[..., None]], axis=-1)
-
-    n = F * M * 6
-    pad = -n % 4096
-    cm = jnp.pad(levels_zz.reshape(n, 64).T.astype(jnp.int16),
-                 ((0, 0), (0, pad)))
-    dcf = jnp.pad(dc.reshape(n), ((0, pad),))
-    qk = tuple(int(v) for v in _encoder_quant_qmat_np(qscale))
-    # Mosaic targets TPU; on CPU (tests) run the kernel interpreted
-    pix, lv2 = transcode_zz(cm, dcf, qk,
-                            interpret=jax.default_backend() == "cpu")
-    lv2_zz = jnp.take(lv2[:, :n].T.reshape(F, M, 6, 64),
-                      jnp.asarray(T.ZIGZAG), axis=-1)
-    return lv2_zz, pix[:, :n].T.reshape(F, M, 6, 8, 8)
+    raster = jnp.take(lv, jnp.asarray(T.UNZIGZAG), axis=-1)
+    pix = KI.dequantize_idct(raster, dc, jnp.asarray(_QM_RASTER)[None, None])
+    lv2 = KF.fdct_quantize(pix, jnp.asarray(_encoder_quant_qmat_np(qscale)))
+    return jnp.take(lv2, jnp.asarray(T.ZIGZAG), axis=-1), pix
 
 
-@partial(jax.jit, static_argnames=("n_mcu", "qmat_key", "w_out", "interpret",
-                                   "win_fetch", "win_emit", "segs",
-                                   "unroll_dec", "unroll_enc",
-                                   "hbm_decode"))
-def transcode_complete_layout(scans, n_mcu: int, qmat_key,
-                              w_out: int = 1024, interpret: bool = False,
-                              win_fetch: int = 256, win_emit: int = 128,
-                              segs: int = 1, unroll_dec: int = 6,
-                              unroll_enc: int = 3,
-                              hbm_decode: bool | None = None):
-    """Zero-relayout COMPLETE device transcode: unescaped scan bytes in,
-    re-encoded scan words out, with all three Pallas stages chained in
-    the entropy kernels' native [CB, blocks, 64, 8, 128] slab layout.
-
-    The previous chain (bench.py make_complete) moved levels through
-    frame-major [F, M, 6, 64] between stages, paying two 64xN
-    transposes (~594 MB at K=64).  Here the decoder's output slab feeds
-    transcode_mcu_layout directly (a pure reshape), the DC prediction
-    cumsum runs in-layout (lanes trailing, so it vectorizes), and the
-    encoder consumes the transcode output slab as-is.  Only the word
-    prep on the way in and the per-frame word untranspose on the way
-    out touch layout, both ~100x smaller than the level planes.
-
-    Big frames stay on device end-to-end: scans beyond ~6KB stream
-    through the decoder's HBM fetch path automatically, and segs > 1
-    splits each frame's re-encode into lane-parallel segments (see
-    _segment_encode_layout) so the output block stays VMEM-sized.
-
-    unroll defaults (6 decode / 3 encode tokens per lockstep iteration)
-    are the measured optimum for this chain on TPU v5e (K=64 sorted
-    corpus: 122.0K fps vs 119.2K at the kernels' old 4/2 defaults;
-    4/3 = 121.0K, 6/2 and 8/2 = 119.3-119.4K).  The standalone
-    decode/encode chains keep 4/2 (deeper measured neutral there).
-
-    scans uint8 [F, max_bytes] (unescaped, zero-padded) ->
-    (words int32 [F*segs, w_out] big-endian unescaped scan words,
-     bits int32 [F*segs]) for native.escape_frames (segs == 1) or
-    native.concat_escape_frames (segs > 1).
-    """
-    from ..bitstream import jpeg_tables as T
-    from ..kernels.entropy_decode_pallas import (scan_words_layout,
-                                                 _decode_layout)
-    from ..kernels.entropy_encode_pallas import WIN_O
-    from ..kernels.transcode_layout_pallas import transcode_mcu_layout
-
-    w_out = max(WIN_O, (w_out + WIN_O - 1) // WIN_O * WIN_O)
-    if interpret:
-        # semantics are unroll-invariant; unrolled interpret graphs
-        # only multiply the 1-core CPU compile time (see the async
-        # chain's matching note)
-        unroll_dec = 1
-        unroll_enc = 1
-    F = scans.shape[0]
-    fp = (F + 1023) // 1024 * 1024
-    cb, nb = fp // 1024, n_mcu * 6
-    wl = scan_words_layout(scans)
-    lv = _decode_layout(wl, nb, interpret=interpret, win=win_fetch,
-                        unroll=unroll_dec, hbm=hbm_decode)
-    lvl = lv.reshape(cb, n_mcu, 6, 64, 8, 128)
-    # resolved dequantized DC (+1024 bias), cumsum per component in-layout
-    qdc_l = int(T.SP5X_QUANT_LUMA_ZZ[0])
-    qdc_c = int(T.SP5X_QUANT_CHROMA_ZZ[0])
-    d = lvl[:, :, :, 0].astype(jnp.int32)           # [cb, M, 6, 8, 128]
-    dy = (jnp.cumsum(d[:, :, :4].reshape(cb, n_mcu * 4, 8, 128) * qdc_l,
-                     axis=1).reshape(cb, n_mcu, 4, 8, 128) + 1024)
-    dcb = jnp.cumsum(d[:, :, 4] * qdc_c, axis=1) + 1024
-    dcr = jnp.cumsum(d[:, :, 5] * qdc_c, axis=1) + 1024
-    dc = jnp.concatenate([dy, dcb[:, :, None], dcr[:, :, None]], axis=2)
-    lv2 = transcode_mcu_layout(lvl, dc, qmat_key, interpret=interpret)
-    words, bits = _segment_encode_layout(lv2, n_mcu, segs, w_out,
-                                         interpret, win_emit,
-                                         unroll=unroll_enc)
-    wout = (words.reshape(cb, segs, w_out, 8, 128)
-            .transpose(0, 3, 4, 1, 2).reshape(fp, segs, w_out)[:F]
-            .reshape(F * segs, w_out))
-    bout = (bits.reshape(cb, segs, 8, 128).transpose(0, 2, 3, 1)
-            .reshape(fp, segs)[:F].reshape(F * segs))
-    return wout, bout
+def requantize(levels, width: int, height: int, qscale: int = 2,
+               quant: str = "ffmpeg"):
+    """Decoded levels (slot 0 = DC difference) -> re-encoded levels
+    (slot 0 = DC value), the transform stage of the chain."""
+    mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
+    if quant == "ffmpeg" and width % 16 == 0 and height % 16 == 0:
+        return transcode_levels_fused(levels, qscale)[0]
+    y, cb, cr = decode_transform(levels, mb_w, mb_h, width, height)
+    return encode_transform(y, cb, cr, mb_w, mb_h, qscale, quant=quant)
 
 
-@partial(jax.jit, static_argnames=("n_mcu", "qmat_key", "w_out",
-                                   "interpret", "win_fetch", "win_emit",
-                                   "segs", "t_max_dec", "t_max_enc",
-                                   "unroll_dec", "unroll_enc", "enc",
-                                   "pmax", "wb", "adv", "press",
-                                   "enc_unroll", "enc_pmax", "enc_wb",
-                                   "enc_adv", "hbm_decode", "sb",
-                                   "segs_dec"))
-def transcode_complete_async(scans, n_mcu: int, qmat_key,
-                             w_out: int = 1024, interpret: bool = False,
-                             win_fetch: int = 64, win_emit: int = 64,
-                             segs: int = 1, t_max_dec: int = 0,
-                             t_max_enc: int = 0, unroll_dec: int = 8,
-                             unroll_enc: int = 3, enc: str = "lockstep",
-                             pmax: int = 8, wb: int = 8, adv: int = 4,
-                             press: int = 64, enc_unroll: int = 8,
-                             enc_pmax: int = 8, enc_wb: int = 8,
-                             enc_adv: int = 4,
-                             hbm_decode: bool | None = None,
-                             sb: int = 8, segs_dec: int = 1,
-                             seg_perm=None, seg_iperm=None):
-    """Lane-async COMPLETE device transcode (dense async decoder).
-
-    Same contract as transcode_complete_layout (unescaped scan bytes in,
-    re-encoded scan words out), but the entropy DECODE runs without the
-    per-block lockstep barrier: the single-pass async dense kernel
-    (kernels/entropy_async_pallas.decode_scans_async_dense) decodes one
-    token per lane per iteration — iteration count = chunk max of
-    per-lane token totals (~1.06x mean on sorted batches, vs 1.93x for
-    the per-block max) — and densifies in-register through a pending
-    slot + ring-buffered output window.  The re-encode is the lockstep
-    packer by default (`enc="async"` selects the record-IR tokenizer
-    pair, whose XLA compaction is gather-bound on TPU — kept for the
-    negative-result record).
-
-    Returns (words [F*segs, w_out], bits [F*segs], ok).  ok False means
-    an iteration/record budget overflowed or a stream was malformed ->
-    caller must fall back (transcode_complete_layout or host entropy).
-
-    sb: sublane width of the kernel lane tile (frames per chunk =
-    sb*128).  Both async kernels are latency-bound on their serial
-    token cycles, so wider tiles cut iteration counts at little
-    per-iteration cost (decode A/B: 67.3 -> 58.1 ms at sb=32,
-    scripts/measure_sb.py).  sb != 8 requires enc="async".
-
-    segs_dec > 1: lane-parallel segmented DECODE (r4 verdict item 3,
-    the decode-side mirror of the encode `segs` splitting,
-    mjpegdec.c:659-736 per segment).  `scans` rows are then bit-aligned
-    per-SEGMENT scans from native.unescape_segment_frames (any row
-    order); each lane decodes n_mcu/segs_dec MCUs — big-frame lanes
-    get segs_dec-x shorter serial token streams, the intrinsic cost the
-    r2 sweep identified.  Cross-segment state is re-linked with two
-    small lane-indexed fixups (no bulk relayout): the DC cumsum gains a
-    per-segment exclusive-prefix base, and the re-encode's initial DC
-    predictors come from the previous segment's lane.  seg_perm[fk] =
-    row index of logical segment fk = frame*segs_dec + k, seg_iperm =
-    its inverse (row -> fk); both int32 [n_rows].  Requires
-    enc="async", segs == 1; output rows are per-segment (row order),
-    to be gathered into fk order and spliced with
-    native.concat_escape_frames(..., segs_dec).
-    """
-    from ..bitstream import jpeg_tables as T
-    from ..kernels.entropy_async_pallas import (decode_scans_async_dense,
-                                                default_t_max_dense,
-                                                empty_scan_bytes)
-    from ..kernels.entropy_decode_pallas import scan_words_layout
-    from ..kernels.entropy_encode_async_pallas import (encode_layout_async,
-                                                       default_t_max_enc)
-    from ..kernels.entropy_encode_pallas import WIN_O
-    from ..kernels.transcode_layout_pallas import transcode_mcu_layout
-
-    w_out = max(WIN_O, (w_out + WIN_O - 1) // WIN_O * WIN_O)
-    if interpret:
-        # interpret mode (CPU tests / dryrun) checks semantics, which
-        # unrolling cannot change — but every unroll step re-traces the
-        # whole token body, and the 1-core CPU compiles of those graphs
-        # dominate the suite (measured 8x compile-time inflation)
-        unroll_dec = 1
-        enc_unroll = 1
-    assert sb == 8 or enc == "async", "sb != 8 requires enc='async'"
-    if segs_dec > 1:
-        assert enc == "async" and segs == 1, \
-            "segs_dec > 1 requires enc='async', segs=1"
-        assert n_mcu % segs_dec == 0 and (sb * 128) % segs_dec == 0
-        assert seg_perm is not None and seg_iperm is not None
-    n_mcu_lane = n_mcu // segs_dec
-    F = scans.shape[0]
-    fpc = sb * 128
-    fp = (F + fpc - 1) // fpc * fpc
-    cb, nb = fp // fpc, n_mcu_lane * 6
-    if t_max_dec == 0:
-        t_max_dec = default_t_max_dense(nb, scans.shape[1])
-    if t_max_enc == 0:
-        t_max_enc = default_t_max_enc(nb)
-        if enc == "async":
-            # the dense async encoder's budget counts stall retries too
-            t_max_enc = t_max_enc * 3 // 2
-    if fp > F:
-        pad = np.frombuffer(empty_scan_bytes(n_mcu_lane), np.uint8)
-        width = max(scans.shape[1], len(pad))
-        prow = np.zeros((1, width), np.uint8)
-        prow[0, :len(pad)] = pad
-        scans = jnp.concatenate(
-            [jnp.pad(scans, ((0, 0), (0, width - scans.shape[1]))),
-             jnp.broadcast_to(jnp.asarray(prow), (fp - F, width))], axis=0)
-        if segs_dec > 1:
-            # pad rows form their own identity-mapped pad frames
-            ext = jnp.arange(F, fp, dtype=jnp.int32)
-            seg_perm = jnp.concatenate([seg_perm.astype(jnp.int32), ext])
-            seg_iperm = jnp.concatenate([seg_iperm.astype(jnp.int32), ext])
-    wl = scan_words_layout(scans, sb=sb)
-    slab, ok_d = decode_scans_async_dense(wl, nb, t_max_dec,
-                                          interpret=interpret,
-                                          win=win_fetch, unroll=unroll_dec,
-                                          hbm=hbm_decode, wb=wb, adv=adv,
-                                          pmax=pmax, press=press, sb=sb)
-    lvl = slab.reshape(cb, n_mcu_lane, 6, 64, sb, 128)
-    qdc_l = int(T.SP5X_QUANT_LUMA_ZZ[0])
-    qdc_c = int(T.SP5X_QUANT_CHROMA_ZZ[0])
-    d = lvl[:, :, :, 0].astype(jnp.int32)
-    dy = (jnp.cumsum(d[:, :, :4].reshape(cb, n_mcu_lane * 4, sb, 128)
-                     * qdc_l,
-                     axis=1).reshape(cb, n_mcu_lane, 4, sb, 128) + 1024)
-    dcb = jnp.cumsum(d[:, :, 4] * qdc_c, axis=1) + 1024
-    dcr = jnp.cumsum(d[:, :, 5] * qdc_c, axis=1) + 1024
-    if segs_dec > 1:
-        # cross-segment DC re-link: the frame's running DC at segment
-        # k's entry is the exclusive prefix (over k) of the per-segment
-        # diff totals — a lane-indexed gather pair on [fp] scalars per
-        # component, no bulk relayout (lane flat order == row order,
-        # scan_words_layout's frame->lane mapping)
-        nfp = fp // segs_dec
-
-        def _seg_base(tot):
-            tfk = tot.reshape(fp)[seg_perm]
-            c = jnp.cumsum(tfk.reshape(nfp, segs_dec), axis=1)
-            base = jnp.concatenate(
-                [jnp.zeros((nfp, 1), c.dtype), c[:, :-1]],
-                axis=1).reshape(fp)
-            return base[seg_iperm].reshape(cb, sb, 128)
-
-        dy = dy + (_seg_base(jnp.sum(d[:, :, :4], axis=(1, 2)))
-                   * qdc_l)[:, None, None]
-        dcb = dcb + (_seg_base(jnp.sum(d[:, :, 4], axis=1))
-                     * qdc_c)[:, None]
-        dcr = dcr + (_seg_base(jnp.sum(d[:, :, 5], axis=1))
-                     * qdc_c)[:, None]
-    dc = jnp.concatenate([dy, dcb[:, :, None], dcr[:, :, None]], axis=2)
-    lv2 = transcode_mcu_layout(lvl, dc, qmat_key, interpret=interpret)
-    if enc == "async":
-        from ..kernels.entropy_encode_async_pallas import \
-            encode_layout_async_dense
-        if segs == 1 and segs_dec > 1:
-            # per-lane initial DC predictors = the previous segment
-            # lane's last absolute re-quantized DCs (128 at k == 0)
-            nfp = fp // segs_dec
-            lvr = lv2.reshape(cb, n_mcu_lane, 6, 64, sb, 128)
-            last = lvr[:, -1, 3:6, 0].astype(jnp.int32)  # [cb, 3, sb, 128]
-            arr = last.transpose(0, 2, 3, 1).reshape(fp, 3)
-            fk = arr[seg_perm].reshape(nfp, segs_dec, 3)
-            prev = jnp.concatenate(
-                [jnp.full((nfp, 1, 3), 128, jnp.int32), fk[:, :-1]],
-                axis=1)
-            dc0 = prev.reshape(fp, 3)[seg_iperm]
-            dc0 = dc0.reshape(cb, sb, 128, 3).transpose(0, 3, 1, 2)
-            lvs = lv2.reshape(cb, nb, 64, sb, 128)
-        elif segs == 1:
-            lvs, dc0 = lv2.reshape(cb, nb, 64, sb, 128), None
-        else:
-            # lane-parallel segments, same wiring as
-            # _segment_encode_layout: a segment's initial DC predictors
-            # are the previous segment's last per-component DC levels
-            ms = n_mcu // segs
-            prev = lv2[:, ms - 1::ms, 3:6, 0].astype(jnp.int32)
-            dc0 = jnp.concatenate(
-                [jnp.full((cb, 1, 3, sb, 128), 128, jnp.int32),
-                 prev[:, :-1]], axis=1).reshape(cb * segs, 3, sb, 128)
-            lvs = lv2.reshape(cb * segs, ms * 6, 64, sb, 128)
-        words, bits, ok_e = encode_layout_async_dense(
-            lvs, w_out, t_max_enc, interpret=interpret,
-            win_rows=win_emit, unroll=enc_unroll, pmax=enc_pmax,
-            wb=enc_wb, adv=enc_adv, dc0=dc0)
-        ok = ok_d & ok_e
-    elif enc == "parallel":
-        # fully parallel XLA where-reduce packer (no serial token
-        # cycle at all); same ok-gated fallback contract
-        from ..kernels.entropy_encode_parallel import \
-            encode_layout_parallel
-        if segs == 1:
-            lvs, dc0 = lv2.reshape(cb, nb, 64, 8, 128), None
-        else:
-            ms = n_mcu // segs
-            prev = lv2[:, ms - 1::ms, 3:6, 0].astype(jnp.int32)
-            dc0 = jnp.concatenate(
-                [jnp.full((cb, 1, 3, 8, 128), 128, jnp.int32),
-                 prev[:, :-1]], axis=1).reshape(cb * segs, 3, 8, 128)
-            lvs = lv2.reshape(cb * segs, ms * 6, 64, 8, 128)
-        words, bits, ok_e = encode_layout_parallel(lvs, w_out, dc0=dc0)
-        bits = bits.reshape(bits.shape[0], 1, 8, 128)
-        ok = ok_d & ok_e
-    elif enc == "rechunk":
-        # parallel XLA block pack + uniform-record Pallas splice:
-        # records are chain-global (DC diffs included), so segs>1 is a
-        # static record-grid slice inside the kernel call
-        from ..kernels.entropy_encode_parallel import \
-            encode_layout_rechunk
-        words, bits, ok_e = encode_layout_rechunk(
-            lv2.reshape(cb, nb, 64, 8, 128), w_out,
-            interpret=interpret, win_rows=win_emit, segs=segs)
-        ok = ok_d & ok_e
-    elif enc == "record":
-        # record-IR tokenizer pair: kept as the documented negative
-        # (XLA compaction is gather-bound on TPU)
-        words, bits, ok_e = encode_layout_async(
-            lv2.reshape(cb, nb, 64, 8, 128), w_out, t_max_enc,
-            interpret=interpret, win_rows=win_emit, segs=segs)
-        ok = ok_d & ok_e
-    else:
-        # lockstep packer (also the segs > 1 fallback of enc="async")
-        words, bits = _segment_encode_layout(lv2, n_mcu, segs, w_out,
-                                             interpret, win_emit,
-                                             unroll=unroll_enc)
-        ok = ok_d
-    wout = (words.reshape(cb, segs, w_out, sb, 128)
-            .transpose(0, 3, 4, 1, 2).reshape(fp, segs, w_out)[:F]
-            .reshape(F * segs, w_out))
-    bout = (bits.reshape(cb, segs, sb, 128).transpose(0, 2, 3, 1)
-            .reshape(fp, segs)[:F].reshape(F * segs))
-    return wout, bout, ok
+def out_bytes_bound(in_bytes: int) -> int:
+    """Output payload budget per frame for an input scan width: twice the
+    input plus framing, in whole KiB so nearby widths share a compiled
+    shape.  A frame that needs more is counted and re-encoded on host."""
+    return (2 * in_bytes + 1024 + 1023) // 1024 * 1024
 
 
-@partial(jax.jit, static_argnames=("n_mcu", "interpret", "win_fetch",
-                                   "unroll_dec"))
-def decode_scans_layout(scans, n_mcu: int, interpret: bool = False,
-                        win_fetch: int = 256, unroll_dec: int = 4):
-    """Zero-relayout device decode: unescaped scan bytes -> decoded
-    pixel blocks uint8 [F, n_mcu, 6, 8, 8].
-
-    Pallas entropy decode + in-layout DC cumsum + slab-layout
-    dequant/IDCT (decode_mcu_layout); the only relayout is the final
-    uint8 pixel transpose — half the bytes of the int16 level transpose
-    the decode_scans_pallas + decode_transform pairing pays.  Feed
-    codecs.amv_video.assemble_planes for display planes.
-    """
-    from ..bitstream import jpeg_tables as T
-    from ..kernels.entropy_decode_pallas import (scan_words_layout,
-                                                 _decode_layout)
-    from ..kernels.transcode_layout_pallas import decode_mcu_layout
-
-    F = scans.shape[0]
-    fp = (F + 1023) // 1024 * 1024
-    cb, nb = fp // 1024, n_mcu * 6
-    wl = scan_words_layout(scans)
-    lv = _decode_layout(wl, nb, interpret=interpret, win=win_fetch,
-                        unroll=unroll_dec)
-    lvl = lv.reshape(cb, n_mcu, 6, 64, 8, 128)
-    qdc_l = int(T.SP5X_QUANT_LUMA_ZZ[0])
-    qdc_c = int(T.SP5X_QUANT_CHROMA_ZZ[0])
-    d = lvl[:, :, :, 0].astype(jnp.int32)
-    dy = (jnp.cumsum(d[:, :, :4].reshape(cb, n_mcu * 4, 8, 128) * qdc_l,
-                     axis=1).reshape(cb, n_mcu, 4, 8, 128) + 1024)
-    dcb = jnp.cumsum(d[:, :, 4] * qdc_c, axis=1) + 1024
-    dcr = jnp.cumsum(d[:, :, 5] * qdc_c, axis=1) + 1024
-    dc = jnp.concatenate([dy, dcb[:, :, None], dcr[:, :, None]], axis=2)
-    pixs = decode_mcu_layout(lvl, dc, interpret=interpret)
-    pix = pixs.transpose(0, 4, 5, 1, 2, 3).reshape(fp, n_mcu, 6, 64)
-    return pix[:F].reshape(F, n_mcu, 6, 8, 8)
+@partial(jax.jit, static_argnames=("width", "height", "qscale", "quant",
+                                   "max_bytes"))
+def transcode_scans(scans, *, width: int, height: int, qscale: int = 2,
+                    quant: str = "ffmpeg", max_bytes: int):
+    """The device part of the chain: unescaped scan rows uint8 [F, W] ->
+    (payload uint8 [F, max_bytes], lens int32 [F], ok bool [F]).
+    payload[f, :lens[f]] is the framed '00dc' payload of frame f when
+    ok[f]; ok is False for a malformed scan or an output overflow."""
+    mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
+    levels, ok = backend.entropy_decoder()(scans, mb_w * mb_h)
+    lv2 = requantize(levels, width, height, qscale, quant)
+    payload, lens = encode_frames_device(lv2, max_bytes=max_bytes)
+    return payload, lens, ok & (lens <= max_bytes)
 
 
-def _segment_encode_layout(lv2, n_mcu: int, segs: int, w_out: int,
-                           interpret: bool, win_emit: int,
-                           unroll: int = 1):
-    """Huffman-pack a level slab [CB, M, 6, 64, 8, 128], splitting each
-    frame into `segs` lane-parallel segments of M/segs MCUs.
-
-    A segment's initial DC predictors are the previous segment's last
-    per-component DC levels (known from the slab, so segments encode
-    concurrently); native.concat_escape_frames splices the bitstreams
-    back at exact bit boundaries.  This is what lifts the encoder's
-    VMEM w_out cap: per-segment output budgets stay ~80-MCU sized for
-    any frame size (mjpegenc.c:379-450 parity at any geometry), and big
-    frames gain lane parallelism instead of losing the device path.
-
-    Returns (words [CB*segs, w_out, 8, 128], bits [CB*segs, 1, 8, 128]).
-    """
-    from ..kernels.entropy_encode_pallas import _encode_layout
-
-    cb_n = lv2.shape[0]
-    if segs == 1:
-        return _encode_layout(lv2.reshape(cb_n, n_mcu * 6, 64, 8, 128),
-                              w_out, interpret=interpret,
-                              win_rows=win_emit, unroll=unroll)
-    ms = n_mcu // segs
-    # previous segment's last DC per component: blocks 3 (last Y), 4, 5
-    # of MCU s*ms-1
-    prev = lv2[:, ms - 1::ms, 3:6, 0].astype(jnp.int32)  # [cb, S, 3, 8, 128]
-    dc0 = jnp.concatenate(
-        [jnp.full((cb_n, 1, 3, 8, 128), 128, jnp.int32), prev[:, :-1]],
-        axis=1).reshape(cb_n * segs, 3, 8, 128)
-    lvs = lv2.reshape(cb_n * segs, ms * 6, 64, 8, 128)
-    return _encode_layout(lvs, w_out, interpret=interpret,
-                          win_rows=win_emit, dc0=dc0, unroll=unroll)
+def unescape_sorted(payloads: list[bytes]):
+    """C unescape into zero-padded rows, sorted by payload length so that
+    frames of similar length decode side by side; returns (rows, inv)
+    with rows[inv] in input order."""
+    order = np.argsort([len(p) for p in payloads], kind="stable")
+    rows, _ = native.unescape_frames([payloads[i] for i in order])
+    return rows, np.argsort(order)
 
 
-def pick_sb(n_frames: int) -> int:
-    """Sublane width for the async chain by batch size.
-
-    Wider lane tiles merge kernel chunks, cutting the latency-bound
-    kernels' total iteration count roughly in proportion (measured:
-    complete chain 112.6 -> 93.8 ms at sb=32, F=16128 sorted,
-    scripts/measure_sb_chain.py).  Below one full wide chunk the merge
-    buys nothing — the batch pads with empty scans and every vector op
-    just gets taller — so small batches stay at the native sb=8."""
-    if n_frames >= 4096:
-        return 32
-    if n_frames >= 2048:
-        return 16
-    return 8
+def collect_payloads(payload, lens, ok, inv, n: int, host_reencode):
+    """Device output (in sorted order) -> payload bytes in input order;
+    frames with ok False go through host_reencode(indices) and are
+    counted."""
+    payload, lens, ok = (np.asarray(a)[inv][:n] for a in (payload, lens, ok))
+    out = [payload[f, :lens[f]].tobytes() for f in range(n)]
+    bad = np.flatnonzero(~ok)
+    if len(bad):
+        backend.count_host_fallback("transcode", len(bad))
+        for f, p in zip(bad, host_reencode(bad)):
+            out[f] = p
+    return out
 
 
-def pick_segments(n_mcu: int, max_mcus: int = 80) -> int:
-    """Smallest divisor S of n_mcu with n_mcu/S <= max_mcus (0 if none:
-    the caller falls back to the host packer for such geometries)."""
-    if n_mcu <= max_mcus:
-        return 1
-    for s in range(2, n_mcu + 1):
-        if n_mcu % s == 0 and n_mcu // s <= max_mcus:
-            return s
-    return 0
+def host_reencode(payloads: list[bytes], width: int, height: int,
+                  qscale: int = 2, quant: str = "ffmpeg") -> list[bytes]:
+    """Bit-exact host re-encode (C Huffman decode and encode around the
+    device transform); raises ValueError on malformed scans."""
+    if not payloads:
+        return []
+    mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
+    lv = huffman_decode_frames(payloads, mb_w * mb_h)
+    lv2 = np.asarray(requantize(jnp.asarray(lv), width, height, qscale,
+                                quant))
+    return [huffman_encode_frame(lv2[f]) for f in range(len(payloads))]
 
 
-@partial(jax.jit, static_argnames=("mb_w", "mb_h", "qmat_key", "w_out",
-                                   "interpret", "win_emit", "segs",
-                                   "unroll_enc"))
-def encode_planes_layout(y, cb_p, cr_p, mb_w: int, mb_h: int, qmat_key,
-                         w_out: int = 1024, interpret: bool = False,
-                         win_emit: int = 128, segs: int = 1,
-                         unroll_enc: int = 2):
-    """Zero-relayout device encode: YUV420 planes -> scan words.
-
-    Block extraction (flip + edge replication, XLA) feeds the slab
-    layout once as uint8 pixels — half the bytes of the int16 level
-    relayout that encode_transform + encode_scans_pallas pays — then
-    FDCT/quant (encode_mcu_layout) and the Pallas Huffman packer run
-    in-layout.
-
-    segs=1: returns (words int32 [F, w_out], bits int32 [F]) for
-    native.escape_frames.  segs>1 (frames larger than the VMEM output
-    budget, n_mcu % segs == 0): each frame is packed as `segs`
-    lane-parallel segments; returns (words [F*segs, w_out],
-    bits [F*segs]) for native.concat_escape_frames(…, segs).
-    """
-    from ..codecs.amv_video import extract_blocks
-    from ..kernels.entropy_encode_pallas import WIN_O
-    from ..kernels.transcode_layout_pallas import encode_mcu_layout
-
-    w_out = max(WIN_O, (w_out + WIN_O - 1) // WIN_O * WIN_O)
-    F = y.shape[0]
-    n_mcu = mb_w * mb_h
-    fp = (F + 1023) // 1024 * 1024
-    cb_n = fp // 1024
-    blocks = extract_blocks(y, cb_p, cr_p, mb_w, mb_h)  # [F, M, 6, 8, 8]
-    bl = jnp.pad(blocks.reshape(F, n_mcu, 6, 64),
-                 ((0, fp - F), (0, 0), (0, 0), (0, 0)))
-    pix = bl.reshape(cb_n, 8, 128, n_mcu, 6, 64).transpose(0, 3, 4, 5, 1, 2)
-    lv2 = encode_mcu_layout(pix, qmat_key, interpret=interpret)
-    words, bits = _segment_encode_layout(lv2, n_mcu, segs, w_out,
-                                         interpret, win_emit,
-                                         unroll=unroll_enc)
-    wout = (words.reshape(cb_n, segs, w_out, 8, 128)
-            .transpose(0, 3, 4, 1, 2).reshape(fp, segs, w_out)[:F]
-            .reshape(F * segs, w_out))
-    bout = (bits.reshape(cb_n, segs, 8, 128).transpose(0, 2, 3, 1)
-            .reshape(fp, segs)[:F].reshape(F * segs))
-    return wout, bout
+def transcode_payloads(payloads: list[bytes], width: int, height: int, *,
+                       qscale: int = 2, quant: str = "ffmpeg") -> list[bytes]:
+    """Re-encode a batch of '00dc' payloads through the device chain."""
+    if not payloads:
+        return []
+    rows, inv = unescape_sorted(payloads)
+    payload, lens, ok = transcode_scans(
+        jnp.asarray(rows), width=width, height=height, qscale=qscale,
+        quant=quant, max_bytes=out_bytes_bound(rows.shape[1]))
+    return collect_payloads(
+        payload, lens, ok, inv, len(payloads),
+        lambda idx: host_reencode([payloads[i] for i in idx], width, height,
+                                  qscale, quant))
 
 
 def transcode_bytes(data: bytes, *, qscale: int = 2,
                     quant: str = "ffmpeg") -> bytes:
-    """Re-encode a complete .amv file (video re-quantized at qscale;
-    audio chunks are already bit-exact ADPCM and pass through).
+    """Re-encode a complete .amv file: video re-quantized at qscale
+    through the device chain; audio chunks are already bit-exact ADPCM
+    and pass through.
 
     quant="q60" re-quantizes with the decoder's own Q60 tables
-    (device-consistent mode, codecs/amv_video.encode_transform); it
-    routes through the two-stage transform path (the fused chains are
-    single-matrix).
-
-    On TPU, MB-aligned sizes run the zero-relayout complete device
-    chain (both entropy stages + transform in one program) over a
-    length-sorted batch — host work is only byte framing; other sizes
-    (or the CPU mesh) fall back to host entropy + the two-stage or
-    fused transform."""
+    (device-consistent mode, codecs/amv_video.encode_transform)."""
     s = riff.demux(data)
     w, h = s.info.width, s.info.height
-    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
-    mb_aligned = w % 16 == 0 and h % 16 == 0
-    on_tpu = jax.default_backend() != "cpu"
-    # frames bigger than the VMEM budgets stay on device too: the
-    # decoder streams long scans from HBM, and the re-encode splits
-    # each frame into lane-parallel segments (pick_segments); only
-    # geometries with no usable segmentation fall back to host entropy
-    segs = pick_segments(mb_w * mb_h)
-    if quant == "ffmpeg" and mb_aligned and on_tpu and s.video_chunks and segs:
-        from ..codecs.amv_video import _encoder_quant_qmat_np
-        from ..native import entropy_native as native
-        # long inputs route through the fixed-shape serving path: one
-        # 4096-frame jit signature + depth-4 in-flight dispatch instead
-        # of a whole-file batch (a 30K-frame file exceeds the remote
-        # compile wall; see pipeline/serving.py)
-        serve_over = int(os.environ.get("AMV_SERVE_THRESHOLD", "8192"))
-        if len(s.video_chunks) > serve_over:
-            from .serving import AsyncTranscoder
-            tr = AsyncTranscoder(mb_w * mb_h, qscale=qscale)
-            vchunks = tr.transcode(s.video_chunks)
-            return riff.mux(vchunks, s.audio_chunks, width=w, height=h,
-                            fps=s.info.fps_num,
-                            sample_rate=s.info.sample_rate)
-        rows, _ = native.unescape_frames(s.video_chunks)
-        lens = np.array([len(p) for p in s.video_chunks])
-        order = np.argsort(lens, kind="stable")
-        inv = np.argsort(order)
-        qk = tuple(int(v) for v in _encoder_quant_qmat_np(qscale))
-        # per-segment output budget, VMEM-capped (32-bit words)
-        ms = mb_w * mb_h // segs
-        w_out = min(1664, 1024 * ((ms + 47) // 48))
-        # lane-async production chain first (round-3 kernels, ~1.2x the
-        # lockstep pair); its ok gate falls back to the lockstep chain
-        # on iteration-budget overflow (pathological streams); sublane
-        # width scales with the batch (pick_sb)
-        words, bits, ok = transcode_complete_async(
-            jnp.asarray(rows[order]), mb_w * mb_h, qk, w_out=w_out,
-            win_fetch=64, win_emit=64, segs=segs, enc="async",
-            sb=pick_sb(len(order)))
-        if not bool(ok[...]):
-            words, bits = transcode_complete_layout(
-                jnp.asarray(rows[order]), mb_w * mb_h, qk, w_out=w_out,
-                win_fetch=64, win_emit=64, segs=segs)
-        try:
-            wnp = np.asarray(words).reshape(len(order), segs, -1)[inv]
-            bnp = np.asarray(bits).reshape(len(order), segs)[inv]
-            if segs == 1:
-                vchunks = native.escape_frames(wnp[:, 0], bnp[:, 0])
-            else:
-                vchunks = native.concat_escape_frames(
-                    wnp.reshape(-1, wnp.shape[2]), bnp.reshape(-1), segs)
-            return riff.mux(vchunks, s.audio_chunks, width=w, height=h,
-                            fps=s.info.fps_num,
-                            sample_rate=s.info.sample_rate)
-        except ValueError:
-            pass  # a segment overflowed the word budget: host entropy
-    levels = huffman_decode_frames(s.video_chunks, mb_w * mb_h)
-    if quant == "q60":
-        y, cb, cr = decode_transform(jnp.asarray(levels), mb_w, mb_h, w, h)
-        lv2 = encode_transform(y, cb, cr, mb_w, mb_h, quant="q60")
-    elif mb_aligned:
-        lv2, _ = transcode_levels_fused(jnp.asarray(levels), qscale)
-    else:
-        y, cb, cr = decode_transform(jnp.asarray(levels), mb_w, mb_h, w, h)
-        lv2 = encode_transform(y, cb, cr, mb_w, mb_h, qscale)
-    if on_tpu:
-        # Pallas bit-packer + C framing (~100x the XLA scatter packer)
-        from ..kernels.entropy_encode_pallas import encode_scans_pallas
-        from ..native import entropy_native as native
-        words, bits = encode_scans_pallas(lv2, w_out=1024)
-        vchunks = native.escape_frames(np.asarray(words), np.asarray(bits))
-    else:
-        payload, lens = encode_frames_device(lv2, max_bytes=4096)
-        payload, lens = np.asarray(payload), np.asarray(lens)
-        vchunks = [payload[f, :lens[f]].tobytes() for f in range(len(lens))]
+    vchunks = transcode_payloads(s.video_chunks, w, h, qscale=qscale,
+                                 quant=quant)
     return riff.mux(vchunks, s.audio_chunks, width=w, height=h,
                     fps=s.info.fps_num, sample_rate=s.info.sample_rate)

@@ -2,9 +2,9 @@
 `ffmpeg -benchmark` utime printing + ad-hoc START_TIMER rdtsc macros in
 libavutil/common.h; regression.sh:124,137-138 logs per-test utime).
 
-TPU equivalents:
+Equivalents here:
 * `stage_timer` — per-stage wall-clock accumulation for pipelines (the
-  structured analog of the utime log; bench.py reports these in `detail`);
+  structured analog of the utime log);
 * `trace` — wraps `jax.profiler.trace` so a run can emit a TensorBoard-
   loadable device trace (`python -m amv_tpu ... --benchmark` prints stage
   times; set AMV_TRACE_DIR=/path to also capture a profiler trace).
@@ -45,7 +45,7 @@ def stage_timer(times: StageTimes, name: str):
 def trace(label: str = "amv_tpu"):
     """Emit a jax.profiler trace to $AMV_TRACE_DIR when set, else no-op.
 
-    The trace contains per-HLO device timelines (the TPU analog of the
+    The trace contains per-HLO device timelines (the device analog of the
     reference's rdtsc START_TIMER blocks) and loads in TensorBoard or
     xprof.
     """

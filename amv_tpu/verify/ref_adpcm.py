@@ -8,7 +8,7 @@ Bit-exact reimplementation of the reference semantics:
 * encode: adpcm.c:461-496 (adpcm_ima_compress_sample at :219-227, the
   odd-frame extra-sample carry and second-boundary padding at :469-476).
 
-Pure Python/numpy; used as the oracle for the TPU kernels.
+Pure Python/numpy; used as the oracle for the device kernels.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Scalar reference implementation of the AMV MJPEG-variant video codec.
 
-Bit-exact, slow, pure numpy/Python.  This is the oracle the TPU kernels are
+Bit-exact, slow, pure numpy/Python.  This is the oracle the device kernels are
 validated against.  Semantics replicated from the reference:
 
 decode (FFmpeg-compatible path):

@@ -18,7 +18,7 @@ s16 PCM:
   high nibble for stereo).
 
 These run sample-at-a-time and exist only as differential ground truth
-for the batched TPU decoders in `codecs/wav_audio.py`.
+for the batched device decoders in `codecs/wav_audio.py`.
 """
 
 from __future__ import annotations

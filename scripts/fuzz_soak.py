@@ -24,7 +24,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-REF_AMV = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+def _corpus() -> bytes:
+    """The seeded 128x96 library clip the tests use (verify/corpus.py)."""
+    from amv_tpu.verify.corpus import library_clip
+    return library_clip(128, 96, fps=12, seconds=4.0, sample_rate=16000,
+                        seed=2026)
 
 
 def mutations(data: bytes, rng, n, max_flips=8):
@@ -49,7 +53,7 @@ def mutations(data: bytes, rng, n, max_flips=8):
 
 def t_riff(rng, n):
     from amv_tpu.containers import riff
-    data = open(REF_AMV, "rb").read()
+    data = _corpus()
     for mut in mutations(data, rng, n):
         try:
             s = riff.demux(mut)
@@ -60,7 +64,7 @@ def t_riff(rng, n):
 
 def t_avi(rng, n):
     from amv_tpu.containers import riff, avi
-    s = riff.demux(open(REF_AMV, "rb").read())
+    s = riff.demux(_corpus())
     w, h = s.info.width, s.info.height
     y = rng.integers(0, 256, (4, h, w), np.uint8).astype(np.uint8)
     cb = rng.integers(0, 256, (4, h // 2, w // 2), np.uint8).astype(np.uint8)
@@ -91,7 +95,7 @@ def t_jpeg_parse(rng, n):
     from amv_tpu.containers import riff
     from amv_tpu.bitstream.jpeg_tables import canned_jpeg_header
     from amv_tpu.bitstream.jpeg_parse import parse_jpeg
-    s = riff.demux(open(REF_AMV, "rb").read())
+    s = riff.demux(_corpus())
     jpg = canned_jpeg_header(s.info.width, s.info.height) \
         + s.video_chunks[0][2:]
     for mut in mutations(jpg, rng, n):
@@ -104,7 +108,7 @@ def t_jpeg_parse(rng, n):
 def t_c_huffman(rng, n):
     from amv_tpu.containers import riff
     from amv_tpu.bitstream.entropy import huffman_decode_frames
-    s = riff.demux(open(REF_AMV, "rb").read())
+    s = riff.demux(_corpus())
     M = (((s.info.width + 15) // 16) * ((s.info.height + 15) // 16))
     base = s.video_chunks[0]
     for mut in mutations(base, rng, n):
@@ -119,7 +123,7 @@ def t_c_segwalk(rng, n):
     # unescape + walk + bit-aligned emit on mutated payloads
     from amv_tpu.containers import riff
     from amv_tpu.native import entropy_native as native
-    s = riff.demux(open(REF_AMV, "rb").read())
+    s = riff.demux(_corpus())
     M = (((s.info.width + 15) // 16) * ((s.info.height + 15) // 16))
     base = s.video_chunks[0]
     for mut in mutations(base, rng, n):

@@ -1,13 +1,9 @@
 #!/bin/sh
 # Full-suite runner with per-file process isolation.
 #
-# Why: a single long-lived pytest process accumulates dozens of huge
-# interpret-mode XLA CPU compiles; on 2026-08-20 the XLA CPU compiler
-# segfaulted ~57 min into a one-process full run
-# (test_entropy_enc_parallel.py::test_rechunk_complete_chain_bytes),
-# while the same file passes clean in isolation (7/7, 19.5 min).
-# Per-file processes localize such crashes to one shard and let the
-# rest of the bar finish.  (pytest-xdist/forked are not in this image.)
+# Why: a single long-lived pytest process accumulates many large XLA
+# CPU compiles; per-file processes localize a compiler crash to one shard
+# and let the rest of the suite finish.
 #
 # Usage:  sh scripts/run_suite_sharded.sh [extra pytest args...]
 # Exit 0 iff every shard passed.

@@ -1,7 +1,7 @@
 """amvlib API-shape parity (AMVDec.h:94-109, AmvLibTest.cpp:36-83).
 
-Drives the AmvOpen/AmvReadNextFrame/... surface over the vendored device
-file exactly like the reference console test, and checks the decoded
+Drives the AmvOpen/AmvReadNextFrame/... surface over the seeded library
+clip exactly like the reference console test, and checks the decoded
 buffers against the framework's batched paths.
 """
 
@@ -15,8 +15,8 @@ from amv_tpu.containers import riff, wav
 def test_open_close(sample_amv_path):
     amv = A.AmvOpen(sample_amv_path)
     assert amv is not None and amv.opened
-    # totalframe = duration * fps (AMVDec.c:112-114): 21 s * 12 fps
-    assert amv.totalframe == 252
+    # totalframe = duration * fps (AMVDec.c:112-114): 4 s * 12 fps
+    assert amv.totalframe == 48
     assert amv.amvinfo.width == 128 and amv.amvinfo.height == 96
     A.AmvClose(amv)
     assert not amv.opened

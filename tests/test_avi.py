@@ -214,11 +214,11 @@ def test_avi_mux_mjpg_roundtrip():
     np.testing.assert_array_equal(avi.extract_pcm(ast), pcm)
 
 
-def test_cli_vcodec_mjpeg(tmp_path):
+def test_cli_vcodec_mjpeg(tmp_path, sample_amv_path):
     """`python -m amv_tpu -i clip.amv -vcodec mjpeg out.avi` writes an
     MJPG AVI whose frames our own AVI reader decodes."""
     from amv_tpu import cli
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+    src = sample_amv_path
     out = str(tmp_path / "out.avi")
     assert cli.main(["-i", src, "--max-frames", "4",
                      "-vcodec", "mjpeg", out]) == 0
@@ -232,13 +232,13 @@ def test_cli_vcodec_mjpeg(tmp_path):
     assert y2.shape == (4, vst.height, vst.width)
 
 
-def test_cli_vcodec_copy(tmp_path, sample_amv_bytes):
+def test_cli_vcodec_copy(tmp_path, sample_amv_bytes, sample_amv_path):
     """`-vcodec copy`: AMV scans remuxed as MJPG without re-encode —
     decoding the copied JPEGs equals the (unflipped) AMV decode."""
     from amv_tpu import cli
     from amv_tpu.codecs import amv_video
     from amv_tpu.containers import riff
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+    src = sample_amv_path
     out = str(tmp_path / "copy.avi")
     assert cli.main(["-i", src, "--max-frames", "3",
                      "-vcodec", "copy", out]) == 0

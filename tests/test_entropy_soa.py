@@ -1,19 +1,9 @@
-"""C SoA entropy emission: coefficient-major levels match the AoS layout."""
+"""C generic-table entropy decoder vs the fixed-table AMV decoder."""
 
 import numpy as np
 
 from amv_tpu.containers import riff
-from amv_tpu.bitstream.entropy import (huffman_decode_frames,
-                                       huffman_decode_frames_soa)
-
-
-def test_soa_matches_aos(sample_amv_bytes):
-    s = riff.demux(sample_amv_bytes)
-    payloads = s.video_chunks[:8]
-    aos = huffman_decode_frames(payloads, 48)
-    soa = huffman_decode_frames_soa(payloads, 48)
-    assert soa.shape == (64, len(payloads) * 48 * 6)
-    np.testing.assert_array_equal(soa, aos.reshape(-1, 64).T)
+from amv_tpu.bitstream.entropy import huffman_decode_frames
 
 
 def test_custom_table_decoder_matches_k3(sample_amv_bytes):

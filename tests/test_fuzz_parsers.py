@@ -309,6 +309,6 @@ def test_fuzz_c_segment_walker(sample_amv_bytes):
     rows, lens = native.unescape_segment_frames(s.video_chunks[:8], M, 4)
     from amv_tpu.kernels.entropy_decode import decode_scans_device
     import jax.numpy as jnp
-    seg = np.asarray(decode_scans_device(jnp.asarray(rows), M // 4))
+    seg = np.asarray(decode_scans_device(jnp.asarray(rows), M // 4)[0])
     full = native.decode_frames(s.video_chunks[:8], M)
     np.testing.assert_array_equal(seg.reshape(8, M, 6, 64), full)

@@ -133,3 +133,37 @@ def test_pcm_to_act_to_pcm():
     c = np.corrcoef(out[400:len(sig)].astype(float),
                     sig[400:len(sig)].astype(float))[0, 1]
     assert c > 0.7
+
+
+def _dot_precisions(jaxpr):
+    """Precision params of every dot_general in a closed jaxpr, nested
+    jaxprs (jit, cond, scan, while) included."""
+    from jax.extend import core
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            subs = v if isinstance(v, (tuple, list)) else (v,)
+            for sub in subs:
+                if isinstance(sub, core.ClosedJaxpr):
+                    out.extend(_dot_precisions(sub.jaxpr))
+                elif isinstance(sub, core.Jaxpr):
+                    out.extend(_dot_precisions(sub))
+    return out
+
+
+def test_device_encoder_contractions_run_at_highest_precision():
+    """A GPU may run float32 matrix products in TF32 (~3 decimal digits),
+    which moves the codebook search scores; every contraction of the
+    device encoder's frame step is pinned to Precision.HIGHEST."""
+    import jax
+    import jax.numpy as jnp
+    from amv_tpu.codecs import g729a as G
+    from amv_tpu.codecs.g729a_encoder_tpu import encode_frame_batch
+    closed = jax.make_jaxpr(encode_frame_batch.__wrapped__)(
+        G.init_state(2), jnp.zeros((2, 160)), jnp.zeros((2, 80)))
+    precisions = _dot_precisions(closed.jaxpr)
+    assert len(precisions) > 10
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p == (hi, hi) for p in precisions), set(precisions)

@@ -1,4 +1,4 @@
-"""Batched TPU G.729A encoder: quality + exact decoder-state tracking."""
+"""Batched device G.729A encoder: quality + exact decoder-state tracking."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -27,14 +27,23 @@ def _metrics(sig, frames, b):
     return c, float(np.mean(segs))
 
 
+# Tolerance: the searches score candidates in float32 with every
+# contraction at Precision.HIGHEST (see
+# test_g729_encoder.py::test_device_encoder_contractions_run_at_highest_precision),
+# but summation order still differs between backends, so near-ties can
+# pick other codewords on a GPU than on the CPU.  The gate therefore
+# bounds the quality (corr > 0.8, segSNR > 4.0 dB), not the bitstream.
+CORR_GATE, SEGSNR_GATE_DB = 0.8, 4.0
+
+
 def test_tpu_encoder_quality_multistream():
     sigs = np.stack([_speechlike(2400, seed=s) for s in (3, 7)])
     frames = encode_streams_tpu(sigs)
     assert frames.shape == (30, 2, 10)
     for b in range(2):
         c, snr = _metrics(sigs[b], frames, b)
-        assert c > 0.8, f"stream {b}: corr {c}"
-        assert snr > 4.0, f"stream {b}: segSNR {snr}"
+        assert c > CORR_GATE, f"stream {b}: corr {c}"
+        assert snr > SEGSNR_GATE_DB, f"stream {b}: segSNR {snr}"
 
 
 def test_tpu_encoder_state_tracks_decoder():

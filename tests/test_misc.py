@@ -77,13 +77,13 @@ def test_truncated_amv_rejected():
         riff.demux(b"not an amv file at all")
 
 
-def test_cli_acodec_copy(tmp_path):
+def test_cli_acodec_copy(tmp_path, sample_amv_path):
     """`-acodec copy`: raw-ADPCM WAV stream copy (amvlib's second WAV
     export mode) — data chunk is the joined '01wb' payloads."""
     import struct
     from amv_tpu import cli
     from amv_tpu.containers import riff
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+    src = sample_amv_path
     out = str(tmp_path / "raw.wav")
     assert cli.main(["-i", src, "--max-frames", "5",
                      "-acodec", "copy", out]) == 0
@@ -120,12 +120,12 @@ def test_cli_psnr_flag(tmp_path, capsys):
     assert "PSNR Mean Y:" in text and "All:" in text
 
 
-def test_cli_duration_flag(tmp_path):
+def test_cli_duration_flag(tmp_path, sample_amv_path):
     """`-t SECONDS` caps output like ffmpeg: 0.5 s of a 16 fps AMV = 8
     frames; `-y` is accepted for invocation parity."""
     from amv_tpu import cli
     from amv_tpu.containers import riff
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+    src = sample_amv_path
     info = riff.read(src).info
     out = str(tmp_path / "cut.wav")
     assert cli.main(["-y", "-i", src, "-t", "0.5",
@@ -138,13 +138,13 @@ def test_cli_duration_flag(tmp_path):
     assert data[d + 8:] == want
 
 
-def test_cli_amv_rescale(tmp_path):
+def test_cli_amv_rescale(tmp_path, sample_amv_path):
     """`-i in.amv -s WxH out.amv` leaves the fused requantize path and
     runs the full decode -> sws rescale -> re-encode pipeline (the
     reference inserts sws_scale whenever -s differs, ffmpeg.c:757)."""
     from amv_tpu import cli
     from amv_tpu.containers import riff
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+    src = sample_amv_path
     out = str(tmp_path / "small.amv")
     assert cli.main(["-i", src, "--max-frames", "2",
                      "-s", "80x64", out]) == 0
@@ -153,11 +153,11 @@ def test_cli_amv_rescale(tmp_path):
     assert len(s.video_chunks) == 2
 
 
-def test_cli_amv_psnr_no_size(tmp_path, capsys):
+def test_cli_amv_psnr_no_size(tmp_path, capsys, sample_amv_path):
     """`-psnr` on AMV->AMV without -s re-encodes at source geometry
     (no fused path, no -s requirement) and prints the summary."""
     from amv_tpu import cli
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
+    src = sample_amv_path
     out = str(tmp_path / "re.amv")
     assert cli.main(["-i", src, "--max-frames", "2", "-psnr", out]) == 0
     text = capsys.readouterr().out

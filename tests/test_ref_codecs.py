@@ -1,4 +1,4 @@
-"""Scalar reference codec tests on the vendored device corpus."""
+"""Scalar reference codec tests on the seeded library clip."""
 
 import numpy as np
 import pytest

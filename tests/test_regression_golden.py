@@ -1,26 +1,30 @@
 """Golden-output regression gate (the reference regression.sh md5 parity).
 
-The decoded output of the vendored device corpus is bit-exact against the
-single-core C implementation of the reference algorithms; these md5s
-freeze that behavior so any semantic regression in the entropy decoder,
-IDCT, assembly/flip or ADPCM kernels fails loudly.
+The seeded library clip (conftest.sample_amv_bytes) and its decode are
+frozen here.  The decode is bit-exact against the single-core C
+implementation of the reference algorithms (native.ref_decode_frame,
+native.ref_adpcm_decode); these md5s make any semantic regression in the
+corpus generator, the entropy decoder, IDCT, assembly/flip or ADPCM
+kernels fail loudly.
 """
 
 import hashlib
 
-import pytest
+import numpy as np
 
 from amv_tpu.pipeline.decode import decode_file
 
+CLIP_MD5 = "211cda7fa0cb1f235944e91c1fdc74f3"
 GOLDEN = {
-    "y": "e3a5464be94344faf039cbb14b4d7c72",
-    "cb": "308b3241ed23be19289cb708b107ec74",
-    "cr": "9441012da8366b0c477952de18f5ec3b",
-    "pcm": "10ee1d7766cb30742c65ea70558cff22",
+    "y": "9fa0ed5bfaf2753192ab894b5181fe78",
+    "cb": "2a5a7a6b087b3f119c6a397d906b81ad",
+    "cr": "b80ce3239e6216a236782898963d11b5",
+    "pcm": "e441399640a4af7ec60e419d635faf18",
 }
 
 
-def test_corpus_decode_golden(sample_amv_path):
+def test_corpus_decode_golden(sample_amv_path, sample_amv_bytes):
+    assert hashlib.md5(sample_amv_bytes).hexdigest() == CLIP_MD5
     dec = decode_file(sample_amv_path)
     got = {
         "y": hashlib.md5(dec.y.tobytes()).hexdigest(),
@@ -29,5 +33,6 @@ def test_corpus_decode_golden(sample_amv_path):
         "pcm": hashlib.md5(dec.pcm.tobytes()).hexdigest(),
     }
     assert got == GOLDEN
-    assert dec.y.shape == (252, 96, 128)
-    assert dec.pcm.shape == (336252,)
+    assert dec.y.shape == (48, 96, 128)
+    assert dec.pcm.shape == (64000,)
+    assert dec.pcm.dtype == np.int16

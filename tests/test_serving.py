@@ -3,11 +3,9 @@
 Byte contract: for any payload stream, the served output must equal the
 host re-encode payload-for-payload, in input order, across batch
 boundaries, partial final batches (pad frames dropped) and batches
-whose scan rows need column padding up to the compiled width.
-Interpret mode on the CPU mesh; tiny shapes, and the chain evals are
-consolidated (each distinct interpret config costs minutes of XLA CPU
-compile) — the core test covers order restore, batch split, frame
-padding and column padding in ONE compiled shape."""
+whose scan rows need column padding up to the compiled width.  Tiny
+shapes on the CPU; the core test covers order restore, batch split,
+frame padding and column padding in ONE compiled shape."""
 import numpy as np
 import pytest
 
@@ -15,7 +13,8 @@ from amv_tpu.bitstream.entropy import (huffman_decode_frames,
                                        huffman_encode_frame)
 from amv_tpu.pipeline.serving import AsyncTranscoder
 
-M = 6  # 2x3 MCUs -> 32x48: tiny interpret-mode geometry
+W, H = 32, 48  # 2x3 MCUs: a tiny MB-aligned geometry
+M = 6
 
 
 def _payloads(F, seed=7, spread=True):
@@ -47,7 +46,7 @@ def test_serving_matches_host_reencode_across_batches():
     # global w_bytes, so the column-padding path is exercised; the
     # within-batch length sort + inverse covers order restoration.
     pays = sorted(_payloads(20), key=len)
-    tr = AsyncTranscoder(M, batch_frames=8, depth=2, interpret=True)
+    tr = AsyncTranscoder(W, H, batch_frames=8, depth=2)
     got = tr.transcode(pays)
     assert got == _want(pays)
 
@@ -57,19 +56,31 @@ def test_serving_lazy_width_guard():
     # clear error; the chain itself is stubbed out (the guard runs
     # before it and interpret evals cost minutes)
     pays = sorted(_payloads(16, seed=11), key=len)
-    tr = AsyncTranscoder(M, batch_frames=8, depth=2, interpret=True)
-    tr._chain = lambda rw: (
-        np.zeros((tr.batch_frames * tr.segs, tr.w_out), np.int32),
-        np.zeros(tr.batch_frames * tr.segs, np.int32),
-        np.zeros(1, np.int32))          # ok=False: drain never escapes
+    tr = AsyncTranscoder(W, H, batch_frames=8, depth=2)
+    tr._chain = _rejecting_chain(tr)
     with pytest.raises(ValueError, match="row width"):
         list(tr.stream(pays))
 
 
+def _rejecting_chain(tr):
+    """A stand-in device chain whose every frame comes back not ok."""
+    def chain(rows):
+        n = tr.batch_frames
+        return (np.zeros((n, 8), np.uint8), np.zeros(n, np.int32),
+                np.zeros(n, bool))
+    return chain
+
+
 def test_serving_host_fallback_bit_exact():
+    # frames the chain rejects are re-encoded on the host, bit-exact, in
+    # order, and counted
+    from amv_tpu import backend
     pays = _payloads(5, seed=3)
-    tr = AsyncTranscoder(M, batch_frames=8, interpret=True)
-    assert tr._host_fallback(pays) == _want(pays)
+    tr = AsyncTranscoder(W, H, batch_frames=8)
+    tr._chain = _rejecting_chain(tr)
+    before = backend.host_fallbacks["transcode"]
+    assert tr.transcode(pays) == _want(pays)
+    assert backend.host_fallbacks["transcode"] - before == len(pays)
 
 
 def test_serving_sharded_mesh_matches_host():
@@ -78,8 +89,7 @@ def test_serving_sharded_mesh_matches_host():
     from amv_tpu.parallel.sharding import make_mesh
     mesh = make_mesh(jax.devices()[:2])
     pays = _payloads(8, seed=9)
-    tr = AsyncTranscoder(M, batch_frames=8, depth=2, interpret=True,
-                         mesh=mesh)
+    tr = AsyncTranscoder(W, H, batch_frames=8, depth=2, mesh=mesh)
     assert tr.transcode(pays) == _want(pays)
 
 
@@ -88,4 +98,4 @@ def test_serving_mesh_batch_divisibility():
     from amv_tpu.parallel.sharding import make_mesh
     mesh = make_mesh(jax.devices()[:2])
     with pytest.raises(ValueError, match="mesh.size"):
-        AsyncTranscoder(M, batch_frames=7, interpret=True, mesh=mesh)
+        AsyncTranscoder(W, H, batch_frames=7, mesh=mesh)

@@ -1,4 +1,4 @@
-"""Multi-chip sharding on the virtual 8-device CPU mesh."""
+"""Multi-device sharding on the virtual 8-device CPU mesh."""
 
 import numpy as np
 import pytest
@@ -17,8 +17,9 @@ def mesh():
 
 
 def test_mesh_shape(mesh):
-    assert mesh.devices.shape == (4, 2)
-    assert mesh.axis_names == ("dp", "sp")
+    # frames are independent, so the mesh is 1-D over frames
+    assert mesh.devices.shape == (8,)
+    assert mesh.axis_names == ("dp",)
 
 
 def test_sharded_video_roundtrip_matches_single(mesh):
@@ -90,110 +91,51 @@ def test_sharded_g729_chain_matches_single(mesh):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-def test_sharded_complete_transcode_matches_single(mesh):
-    """The production zero-relayout chain (Pallas entropy decode +
-    in-layout transform + Pallas entropy encode) sharded over the mesh
-    equals the single-device run and the host re-encode payloads."""
-    import jax.numpy as jnp
-    from amv_tpu.bitstream.entropy import (huffman_encode_frame,
-                                           huffman_decode_frames)
-    from amv_tpu.codecs.amv_video import (_encoder_quant_qmat_np,
-                                          _unescape_pack)
-    from amv_tpu.parallel.sharding import sharded_complete_transcode
-    from amv_tpu.pipeline.transcode import (transcode_complete_layout,
-                                            transcode_levels_fused)
-
-    rng = np.random.default_rng(11)
-    F, M = 16, 2
+def _scan_rows(seed, F=16, M=2):
+    from amv_tpu.bitstream.entropy import huffman_encode_frame
+    from amv_tpu.pipeline.transcode import unescape_sorted
+    rng = np.random.default_rng(seed)
     lv = np.zeros((F, M, 6, 64), np.int16)
     lv[..., 0] = rng.integers(-8, 48, (F, M, 6))
     lv[..., 1] = rng.integers(-4, 4, (F, M, 6))
     payloads = [huffman_encode_frame(lv[f]) for f in range(F)]
-    rows = _unescape_pack(payloads)
-    qk = tuple(int(v) for v in _encoder_quant_qmat_np(2))
+    rows, inv = unescape_sorted(payloads)
+    return payloads, rows, inv
 
-    fn = sharded_complete_transcode(mesh, M, qk, w_out=128, interpret=True)
-    words, bits = fn(jnp.asarray(rows))
-    w1, b1 = transcode_complete_layout(jnp.asarray(rows), M, qk,
-                                       w_out=128, interpret=True,
-                                       win_fetch=64, win_emit=64)
-    np.testing.assert_array_equal(np.asarray(words), np.asarray(w1))
-    np.testing.assert_array_equal(np.asarray(bits), np.asarray(b1))
 
-    # end-to-end byte equality vs the host re-encode
-    from amv_tpu.native import entropy_native as native
-    got = native.escape_frames(np.asarray(words), np.asarray(bits))
-    lvdec = huffman_decode_frames(payloads, M)
-    lv2 = np.asarray(transcode_levels_fused(jnp.asarray(lvdec), 2)[0])
-    want = [huffman_encode_frame(lv2[f]) for f in range(F)]
-    assert got == want
+def test_sharded_complete_transcode_matches_single(mesh):
+    """The complete device chain (Huffman decode + transform + Huffman
+    encode with framing) sharded over the mesh equals the single-device
+    run and the host re-encode payloads."""
+    import jax.numpy as jnp
+    from amv_tpu.parallel.sharding import sharded_transcode_scans
+    from amv_tpu.pipeline.transcode import (host_reencode, out_bytes_bound,
+                                            transcode_scans)
+    payloads, rows, inv = _scan_rows(11)
+    kw = dict(width=32, height=16, max_bytes=out_bytes_bound(rows.shape[1]))
+    got = sharded_transcode_scans(mesh, **kw)(jnp.asarray(rows))
+    want = transcode_scans(jnp.asarray(rows), **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    payload, lens, ok = (np.asarray(a)[inv] for a in got)
+    assert ok.all()
+    assert ([payload[f, :lens[f]].tobytes() for f in range(len(payloads))]
+            == host_reencode(payloads, 32, 16))
 
 
 def test_sharded_decode_scans_matches_single(mesh):
     import jax.numpy as jnp
-    from amv_tpu.bitstream.entropy import huffman_encode_frame
-    from amv_tpu.codecs.amv_video import _unescape_pack
-    from amv_tpu.parallel.sharding import sharded_decode_scans
-    from amv_tpu.pipeline.transcode import decode_scans_layout
-
-    rng = np.random.default_rng(12)
-    F, M = 16, 2
-    lv = np.zeros((F, M, 6, 64), np.int16)
-    lv[..., 0] = rng.integers(-8, 48, (F, M, 6))
-    payloads = [huffman_encode_frame(lv[f]) for f in range(F)]
-    rows = _unescape_pack(payloads)
-    fn = sharded_decode_scans(mesh, M, interpret=True)
-    got = np.asarray(fn(jnp.asarray(rows)))
-    want = np.asarray(decode_scans_layout(jnp.asarray(rows), M,
-                                          interpret=True, win_fetch=64))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_sharded_async_transcode_sb_matches_single(mesh):
-    """The lane-async bench-headline chain, sharded with a non-default
-    sublane width (sb=16), must equal the single-device async chain and
-    the host re-encode bytes.  sb sizes the PER-SHARD lane tile, so the
-    words/bits contract cannot depend on it."""
-    import jax.numpy as jnp
-    from amv_tpu.bitstream.entropy import (huffman_encode_frame,
-                                           huffman_decode_frames)
-    from amv_tpu.codecs.amv_video import (_encoder_quant_qmat_np,
-                                          _unescape_pack)
-    from amv_tpu.parallel.sharding import sharded_complete_transcode_async
-    from amv_tpu.pipeline.transcode import (transcode_complete_async,
-                                            transcode_levels_fused)
-
-    rng = np.random.default_rng(17)
-    F, M = 16, 2
-    lv = np.zeros((F, M, 6, 64), np.int16)
-    lv[..., 0] = rng.integers(-8, 48, (F, M, 6))
-    lv[..., 1] = rng.integers(-4, 4, (F, M, 6))
-    payloads = [huffman_encode_frame(lv[f]) for f in range(F)]
-    rows = _unescape_pack(payloads)
-    qk = tuple(int(v) for v in _encoder_quant_qmat_np(2))
-
-    fn = sharded_complete_transcode_async(mesh, M, qk, w_out=128,
-                                          interpret=True, sb=16)
-    words, bits, ok = fn(jnp.asarray(rows))
-    assert bool(np.all(np.asarray(ok) == 1))
-    w1, b1, ok1 = transcode_complete_async(jnp.asarray(rows), M, qk,
-                                           w_out=128, interpret=True,
-                                           win_fetch=64, win_emit=64,
-                                           enc="async", sb=16)
-    assert bool(ok1)
-    np.testing.assert_array_equal(np.asarray(words), np.asarray(w1))
-    np.testing.assert_array_equal(np.asarray(bits), np.asarray(b1))
-
-    from amv_tpu.native import entropy_native as native
-    got = native.escape_frames(np.asarray(words), np.asarray(bits))
-    lvdec = huffman_decode_frames(payloads, M)
-    lv2 = np.asarray(transcode_levels_fused(jnp.asarray(lvdec), 2)[0])
-    want = [huffman_encode_frame(lv2[f]) for f in range(F)]
-    assert got == want
+    from amv_tpu.kernels.entropy_decode import decode_scans_device
+    from amv_tpu.parallel.sharding import sharded_entropy_decode
+    _, rows, _ = _scan_rows(12)
+    got = sharded_entropy_decode(mesh, 2)(jnp.asarray(rows))
+    want = decode_scans_device(jnp.asarray(rows), 2)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_sharded_g729_encoder_matches_single(mesh):
-    """The batched TPU G.729A encoder frame step sharded on dp must emit
+    """The batched device G.729A encoder frame step sharded on dp must emit
     the same parameters (and state) as the unsharded step."""
     import jax.numpy as jnp
     from amv_tpu.codecs import g729a

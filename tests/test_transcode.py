@@ -20,5 +20,12 @@ def test_transcode_device_corpus(sample_amv_bytes):
     c = np.corrcoef(d_in.y.astype(float).ravel(),
                     d_out.y.astype(float).ravel())[0, 1]
     # one generation of the reference's asymmetric encode(MPEG1 matrix)/
-    # decode(Q60) quantization costs fidelity; 0.87 measured on this corpus
-    assert c > 0.8
+    # decode(Q60) quantization costs fidelity; the seeded clip's noise
+    # texture is what it loses most (0.72 on this clip)
+    assert c > 0.65
+    # byte oracle: the C reference decoder + encoder at qscale 2
+    from amv_tpu.native import entropy_native as native
+    want = [native.ref_encode_frame(
+        *native.ref_decode_frame(p, s_in.info.width, s_in.info.height), 2)
+        for p in s_in.video_chunks]
+    assert s_out.video_chunks == want

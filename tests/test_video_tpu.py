@@ -1,4 +1,4 @@
-"""TPU video kernels vs the scalar oracle: bit-exact."""
+"""Device video kernels vs the scalar oracle: bit-exact."""
 
 import numpy as np
 import pytest

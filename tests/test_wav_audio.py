@@ -1,6 +1,6 @@
 """WAV/AVI audio ingest codecs (codecs/wav_audio.py).
 
-Differential gates: batched TPU block decoders vs the scalar oracles in
+Differential gates: batched device block decoders vs the scalar oracles in
 verify/ref_wav_audio.py (which transliterate pcm.c:45-75,380-470 and
 adpcm.c:983-1106 semantics), plus container wiring tests.
 """

@@ -97,15 +97,12 @@ def test_rgb4_nibble_pack():
     np.testing.assert_array_equal(packed >> 4, by_byte[:, 1::2])
 
 
-def test_cli_pix_fmt_raw(tmp_path):
+def test_cli_pix_fmt_raw(tmp_path, sample_amv_path):
     """`-pix_fmt rgb565 out.raw` writes LE-packed dithered frames equal
     to the kernel applied to the decoded planes."""
-    import os
     from amv_tpu import cli
     from amv_tpu.pipeline.decode import decode_file
-    src = "/root/reference/C-AMVDecoder/bin/AMV1.amv"
-    if not os.path.exists(src):
-        pytest.skip("sample corpus not available")
+    src = sample_amv_path
     out = str(tmp_path / "o.raw")
     assert cli.main(["-i", src, "--max-frames", "2",
                      "-pix_fmt", "rgb565", out]) == 0
