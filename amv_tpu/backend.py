@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import collections
 import os
-from functools import partial
 
 import jax
 
@@ -46,14 +45,6 @@ def entropy_decoder():
         from .kernels.entropy_decode_cuda import decode_scans_cuda
         return decode_scans_cuda
     return entropy_decode.decode_scans_device
-
-
-def adpcm_decoder():
-    """IMA-ADPCM chunk decode: (payload uint8 [C, L], predictor [C],
-    step_index [C]) -> int16 [C, 2L].  The GPU takes the log-depth
-    associative form, the CPU the sequential scan."""
-    method = "associative" if platform() == "gpu" else "scan"
-    return partial(adpcm.decode_chunks, method=method)
 
 
 def adpcm_encoder():

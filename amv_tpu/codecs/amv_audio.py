@@ -43,7 +43,7 @@ def decode_chunks(chunks: list[bytes]) -> np.ndarray:
         pred[i] = struct.unpack_from("<h", c, 0)[0]
         sidx[i] = min(max(struct.unpack_from("<H", c, 2)[0], 0), 88)
         payload[i, :lens[i]] = np.frombuffer(c, dtype=np.uint8)[8:]
-    pcm = np.asarray(backend.adpcm_decoder()(
+    pcm = np.asarray(K.decode_chunks(
         jnp.asarray(payload), jnp.asarray(pred), jnp.asarray(sidx)))
     return np.concatenate([pcm[i, :2 * lens[i]] for i in range(n)])
 

@@ -105,7 +105,7 @@ def decode_ima_wav(data: bytes, channels: int, block_align: int
     for bi, chs in enumerate(streams):
         for ci, st in enumerate(chs):
             rows[bi * channels + ci, :len(st)] = st
-    dec = np.asarray(K.decode_nibbles_scan(
+    dec = np.asarray(K.decode_nibbles(
         jnp.asarray(rows), jnp.asarray(preds, jnp.int32),
         jnp.asarray(sidxs, jnp.int32)))
     out = []

@@ -17,12 +17,10 @@ depth, fully parallel across samples AND across chunks.  diff_t depends
 only on the step_index chain (not the predictor), which is what decouples
 the two scans.  The result is bit-exact with the reference decoder.
 
-Two interchangeable decode implementations are provided (both bit-exact):
-`decode_nibbles` (associative, log-depth — best for few long chunks) and
-`decode_nibbles_scan` (single-pass lax.scan over samples with the state in
-registers — best for large chunk batches, where the associative form's
-~2*log2(n) full-array passes dominate).  `decode_chunks` takes either
-by name; amv_tpu.backend picks one per platform from measurement.
+`decode_chunks` and the IMA-WAV decoder (codecs/wav_audio.py) run this
+associative form on every platform.  `decode_nibbles_scan` is the
+sequential per-sample form of the same recurrence, kept as the reference
+the tests compare against (PERF.md records both timed on the GPU).
 
 Chunks are independent by construction (each '01wb' chunk header carries
 its own {predictor, step_index}), so the batch dimension is free
@@ -112,42 +110,25 @@ def bytes_to_nibbles(data: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack([hi, lo], axis=-1).reshape(*d.shape[:-1], -1)
 
 
-DECODE_METHODS = ("scan", "associative")
-
-
-@partial(jax.jit, static_argnames=("method",))
+@jax.jit
 def decode_chunks(payload: jnp.ndarray, init_predictor: jnp.ndarray,
-                  init_step_index: jnp.ndarray,
-                  method: str = "scan") -> jnp.ndarray:
-    """Decode a batch of equal-padded chunks.
+                  init_step_index: jnp.ndarray) -> jnp.ndarray:
+    """Decode a batch of equal-padded chunks with the associative scan.
 
     payload: uint8 [n_chunks, max_bytes] nibble bytes (without the 8-byte
              header; zero-padded past each chunk's real length — callers
              slice the valid prefix of each row afterwards).
-    method: "scan" (decode_nibbles_scan) or "associative"
-            (decode_nibbles); both are bit-exact.
     """
-    nibbles = bytes_to_nibbles(payload)
-    init_predictor = init_predictor.astype(jnp.int32)
-    init_step_index = init_step_index.astype(jnp.int32)
-    if method == "scan":
-        return decode_nibbles_scan(nibbles, init_predictor, init_step_index)
-    if method == "associative":
-        return decode_nibbles(nibbles, init_predictor, init_step_index)
-    raise ValueError(f"unknown ADPCM decode method {method!r}")
+    return decode_nibbles(bytes_to_nibbles(payload),
+                          init_predictor.astype(jnp.int32),
+                          init_step_index.astype(jnp.int32))
 
 
 @jax.jit
 def decode_nibbles_scan(nibbles: jnp.ndarray, init_predictor: jnp.ndarray,
                         init_step_index: jnp.ndarray) -> jnp.ndarray:
-    """Sequential lax.scan over samples, chunk-parallel across rows.
-
-    Complementary to the associative form: the scan keeps the 2-value
-    state in registers and touches each nibble once (one HBM pass), which
-    wins for large chunk batches where associative_scan's ~2*log2(n)
-    full-array passes dominate; the associative form keeps log-depth for
-    small-batch / long-chunk shapes.
-    """
+    """Sequential lax.scan over samples, chunk-parallel across rows: the
+    reference form of `decode_nibbles` (same arguments, same result)."""
     def step(carry, nt):
         p, s = carry
         step_v = jnp.take(_STEP_TABLE, s)

@@ -508,114 +508,6 @@ API int amv_decode_scans_custom(const uint8_t *scan_blob,
 }
 
 /* ------------------------------------------------------------------ */
-/* Segment-boundary index pass (r4 verdict item 3: lane-parallel       */
-/* segmented DECODE needs the bit offset of every (n_mcu/segs)-MCU     */
-/* boundary; the encode side never needs one because it produces the   */
-/* bits itself, mjpegenc.c:437-450).                                   */
-/* ------------------------------------------------------------------ */
-
-/* Token-walk one unescaped scan with the fixed AMV tables, recording
- * the bit offset of MCU boundaries m = k*(n_mcu/segs).  Exactly the
- * decode loop minus level reconstruction/stores.  Returns 0 or a
- * negative block index on malformed streams. */
-static int walk_boundaries(const uint8_t *scan, size_t scan_len,
-                           int n_mcu, int segs, int64_t *bits_out) {
-    BitReader br;
-    br_init(&br, scan, scan_len);
-    int ms = n_mcu / segs, seg = 0;
-    for (int m = 0; m < n_mcu; m++) {
-        if (seg < segs && m == seg * ms)
-            bits_out[seg++] = (int64_t)br.byte_pos * 8 - br.bits;
-        for (int b = 0; b < 6; b++) {
-            int luma = b < 4;
-            DecTable *dc = luma ? &dt_dc_l : &dt_dc_c;
-            DecTable *ac = luma ? &dt_ac_l : &dt_ac_c;
-            uint32_t peek = br_peek16(&br);
-            uint32_t ent = dc->e1[peek >> 8];
-            if (!ent) ent = dc->e[peek];
-            int len = (int)(ent & 31);
-            if (!len) return -(int)(m * 6 + b + 1);
-            int sym = (int)(ent >> 5);
-            br_skip(&br, len + sym);     /* code + mantissa, <= 27 bits */
-            int i = 0;
-            for (;;) {
-                peek = br_peek16(&br);
-                ent = ac->e1[peek >> 8];
-                if (!ent) ent = ac->e[peek];
-                len = (int)(ent & 31);
-                if (!len) return -(int)(m * 6 + b + 1);
-                sym = (int)(ent >> 5);
-                if (sym == 0x00) { br_skip(&br, len); break; }
-                int run = sym >> 4, size = sym & 0xF;
-                br_skip(&br, len + size);
-                if (size == 0) {
-                    if (run != 15) return -(int)(m * 6 + b + 1);
-                    i += 16;
-                    continue;
-                }
-                i += run + 1;
-                if (i > 63) return -(int)(m * 6 + b + 1);
-                if (i == 63) break;
-            }
-        }
-    }
-    return 0;
-}
-
-/* Unescape + boundary-walk + emit bit-ALIGNED per-segment rows: row
- * f*segs+k of dst holds the bytes of frame f's scan from the bit
- * offset of MCU k*(n_mcu/segs), left-shifted so the segment starts at
- * bit 0 of byte 0 — each row then decodes with the UNMODIFIED batched
- * entropy decoder at n_mcu/segs MCUs per lane (mjpegdec.c:659-736
- * semantics per segment; DC diffs stay raw, the device chain's
- * full-frame cumsum re-links them).  dst must be zeroed by the caller.
- * Returns the longest segment byte length, or <0 on error. */
-API int64_t amv_unescape_segment_frames(
-        const uint8_t *payload_blob, const int64_t *offsets,
-        const int64_t *sizes, int n_frames, int n_mcu, int segs,
-        uint8_t *dst, int64_t row_stride, int64_t *out_lens) {
-    ensure_tables();
-    if (segs < 1 || n_mcu % segs) return -1000001;
-    size_t max_sz = 0;
-    for (int f = 0; f < n_frames; f++)
-        if ((size_t)sizes[f] > max_sz) max_sz = (size_t)sizes[f];
-    uint8_t *tmp = (uint8_t *)malloc(max_sz + 16);
-    if (!tmp) return -1000000;
-    int64_t bits[64];
-    int64_t maxseg = 0;
-    for (int f = 0; f < n_frames; f++) {
-        const uint8_t *p = payload_blob + offsets[f];
-        int64_t sz = sizes[f];
-        if (sz < 4 || segs > 64) { free(tmp); return -2000000 - f; }
-        size_t scan_len = unescape(p + 2, (size_t)sz - 4, tmp);
-        memset(tmp + scan_len, 0, 9);     /* shift reads tmp[B+j+1] */
-        int rc = walk_boundaries(tmp, scan_len, n_mcu, segs, bits);
-        if (rc < 0) { free(tmp); return -3000000 - f; }
-        for (int k = 0; k < segs; k++) {
-            int64_t b0 = bits[k];
-            int64_t bend = (k + 1 < segs) ? bits[k + 1]
-                                          : (int64_t)scan_len * 8;
-            int64_t nbytes = (bend - b0 + 7) >> 3;
-            if (nbytes > row_stride) { free(tmp); return -4000000 - f; }
-            uint8_t *drow = dst + ((size_t)f * segs + k) * row_stride;
-            int r = (int)(b0 & 7);
-            size_t B = (size_t)(b0 >> 3);
-            if (!r) {
-                memcpy(drow, tmp + B, (size_t)nbytes);
-            } else {
-                for (int64_t j = 0; j < nbytes; j++)
-                    drow[j] = (uint8_t)((tmp[B + j] << r) |
-                                        (tmp[B + j + 1] >> (8 - r)));
-            }
-            out_lens[(size_t)f * segs + k] = nbytes;
-            if (nbytes > maxseg) maxseg = nbytes;
-        }
-    }
-    free(tmp);
-    return maxseg;
-}
-
-/* ------------------------------------------------------------------ */
 /* Bit writer                                                          */
 /* ------------------------------------------------------------------ */
 

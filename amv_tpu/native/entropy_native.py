@@ -155,40 +155,6 @@ def unescape_frames(payloads: list[bytes]):
     return rows[:, :maxlen], lens
 
 
-_lib.amv_unescape_segment_frames.restype = ctypes.c_int64
-_lib.amv_unescape_segment_frames.argtypes = [
-    ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
-    ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-    ctypes.POINTER(ctypes.c_int64)]
-
-
-def unescape_segment_frames(payloads: list[bytes], n_mcu: int, segs: int):
-    """Batch unescape + boundary token-walk + bit-aligned segment split
-    (entropy.c:amv_unescape_segment_frames): row f*segs+k decodes
-    n_mcu/segs MCUs of frame f with the unmodified batched decoder.
-
-    Returns (rows uint8 [F*segs, stride], lens int64 [F*segs]).
-    """
-    blob = b"".join(payloads)
-    offsets = np.zeros(len(payloads), dtype=np.int64)
-    sizes = np.array([len(p) for p in payloads], dtype=np.int64)
-    np.cumsum(sizes[:-1], out=offsets[1:])
-    stride = (int(sizes.max()) + 3) & ~3
-    rows = np.zeros((len(payloads) * segs, stride), np.uint8)
-    lens = np.zeros(len(payloads) * segs, np.int64)
-    rc = _lib.amv_unescape_segment_frames(
-        blob, offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        len(payloads), n_mcu, segs,
-        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        stride, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    if rc < 0:
-        raise ValueError(f"native segment unescape failed (rc={rc})")
-    maxlen = (int(rc) + 3) & ~3
-    return rows[:, :maxlen], lens
-
-
 _lib.amv_decode_scans_custom.restype = ctypes.c_int
 _lib.amv_decode_scans_custom.argtypes = [
     ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),

@@ -86,11 +86,10 @@ def sharded_transcode_scans(mesh: Mesh, **kw):
 
 
 def sharded_adpcm_decode(mesh: Mesh):
-    """ADPCM chunk decode (backend.adpcm_decoder) with chunks sharded on
-    dp."""
-    def fn(payload, pred, sidx):
-        return backend.adpcm_decoder()(payload, pred, sidx)
-    return _data_parallel(fn, mesh, 3, 1)
+    """ADPCM chunk decode (kernels.adpcm.decode_chunks) with chunks
+    sharded on dp."""
+    s = NamedSharding(mesh, P("dp"))
+    return jax.jit(KA.decode_chunks, in_shardings=(s, s, s), out_shardings=s)
 
 
 def sharded_adpcm_encode(mesh: Mesh):

@@ -1,14 +1,15 @@
-"""Steady-state AMV transcode serving: fixed-shape batches, deep dispatch.
+"""Batched AMV transcode: fixed-shape batches, deep dispatch.
 
-`transcode_bytes` (pipeline/transcode.py) runs a whole file as ONE
-device batch, which is right for a single file and wrong for a stream
-of inputs: every new input length is a new jit signature, and each
-blocking call waits for its own batch.  `AsyncTranscoder` runs the same
-device chain (transcode.transcode_scans) over fixed-shape batches:
+`AsyncTranscoder` runs the device chain (transcode.transcode_scans) over
+fixed-shape batches of frames; `transcode_bytes` (pipeline/transcode.py)
+runs every file through it.
 
-* ONE fixed (batch_frames, w_bytes) jit signature serves any stream
-  length — the last batch is padded with repeats of its shortest
-  payload and the pad outputs are dropped;
+* device memory is bounded by one batch, whatever the input length:
+  `batch_frames_for` sizes a file's batch to the next power of two of
+  its frame count, capped at BATCH_MCUS macroblocks;
+* compiled shapes are few: a batch is (batch_frames, w_bytes), w_bytes
+  is rounded up to whole KiB, and the last batch is padded with repeats
+  of its shortest payload whose outputs are dropped;
 * `depth` batches stay in flight: JAX dispatch is async, so batch
   i+1's host unescape (C), host->device copy and dispatch ride under
   batch i's device work, and the host collection of batch i-depth
@@ -34,6 +35,26 @@ import numpy as np
 from .transcode import (collect_payloads, host_reencode, out_bytes_bound,
                         transcode_scans, unescape_sorted)
 
+# macroblocks per device batch at most: the chain's temporaries take
+# about 13 KB per macroblock, so a batch stays near 7 GB of device memory
+BATCH_MCUS = 1 << 19
+
+
+def batch_frames_for(n_frames: int, width: int, height: int) -> int:
+    """Frames per batch for an input of n_frames: the next power of two
+    (so inputs of similar length share a compiled shape), at most
+    BATCH_MCUS macroblocks, at least 1."""
+    n_mcu = ((width + 15) // 16) * ((height + 15) // 16)
+    cap = 1 << max(0, (BATCH_MCUS // n_mcu).bit_length() - 1)
+    need = 1 << max(0, n_frames - 1).bit_length()
+    return min(cap, need)
+
+
+def row_width(payloads) -> int:
+    """Unescaped-row width for a known payload list: the longest escaped
+    payload (which bounds its unescaped scan) rounded up to whole KiB."""
+    return -(-max(len(p) for p in payloads) // 1024) * 1024
+
 
 class AsyncTranscoder:
     """Order-preserving AMV payload transcoder over fixed-shape batches.
@@ -42,12 +63,13 @@ class AsyncTranscoder:
     ----------
     width, height : frame geometry (fixed per instance).
     qscale : re-encode quantizer scale (reference default 2).
+    quant : "ffmpeg" or "q60" re-quantization (transcode.requantize).
     batch_frames : frames per device batch = the one compiled shape.
     depth : batches kept in flight before blocking on the oldest.
     w_bytes : fixed unescaped-row width.  None = set from the first
-        batch (or, via `transcode`, from the whole input); a later
-        batch with longer scans then raises — pass an explicit bound
-        for open-ended streams.
+        batch (or, via `transcode`, from the whole input rounded up to
+        whole KiB); a later batch with longer scans then raises — pass
+        an explicit bound for open-ended streams.
     mesh : optional jax.sharding.Mesh — each batch's frames shard over
         the whole mesh (frames are independent bitstreams: zero
         collectives, parallel/sharding.sharded_transcode_scans);
@@ -55,13 +77,13 @@ class AsyncTranscoder:
     """
 
     def __init__(self, width: int, height: int, qscale: int = 2,
-                 batch_frames: int = 4096, depth: int = 4,
-                 w_bytes: int | None = None, mesh=None):
+                 quant: str = "ffmpeg", batch_frames: int = 4096,
+                 depth: int = 4, w_bytes: int | None = None, mesh=None):
         if mesh is not None and batch_frames % mesh.size:
             raise ValueError(f"batch_frames={batch_frames} must divide "
                              f"by mesh.size={mesh.size}")
         self.width, self.height = width, height
-        self.qscale = qscale
+        self.qscale, self.quant = qscale, quant
         self.batch_frames = batch_frames
         self.depth = max(1, depth)
         self.w_bytes = w_bytes
@@ -73,7 +95,8 @@ class AsyncTranscoder:
         fn = self._chains.get(max_bytes)
         if fn is None:
             kw = dict(width=self.width, height=self.height,
-                      qscale=self.qscale, max_bytes=max_bytes)
+                      qscale=self.qscale, quant=self.quant,
+                      max_bytes=max_bytes)
             if self.mesh is None:
                 fn = partial(transcode_scans, **kw)
             else:
@@ -109,7 +132,8 @@ class AsyncTranscoder:
         return collect_payloads(
             payload, lens, ok, inv, n,
             lambda idx: host_reencode([payloads[i] for i in idx],
-                                      self.width, self.height, self.qscale))
+                                      self.width, self.height, self.qscale,
+                                      self.quant))
 
     # ------------------------------------------------------------------
     def stream(self, payload_iter):
@@ -132,11 +156,11 @@ class AsyncTranscoder:
 
     def transcode(self, payloads) -> list[bytes]:
         """Transcode a known-size payload list (row width bounded up
-        front, so any batch mix compiles once)."""
+        front and rounded to whole KiB, so any batch mix compiles once
+        and inputs of similar scan width share the compiled shape)."""
         payloads = list(payloads)
         if not payloads:
             return []
         if self.w_bytes is None:
-            # escaped length bounds unescaped length (native stride rule)
-            self.w_bytes = (max(len(p) for p in payloads) + 3) & ~3
+            self.w_bytes = row_width(payloads)
         return list(self.stream(payloads))

@@ -11,6 +11,8 @@ One chain runs on every platform (kernels chosen by amv_tpu.backend):
    framing (kernels/entropy_encode.py:encode_frames_device);
 5. host: RIFF mux.
 
+`transcode_bytes` runs a file through pipeline/serving.py:AsyncTranscoder,
+so device memory is bounded by one batch whatever the file's length.
 Per frame only the input scan and the output payload cross the host
 link.  A frame whose scan is malformed, or whose output overflows the
 byte budget, is re-encoded on the host and counted in
@@ -139,32 +141,21 @@ def host_reencode(payloads: list[bytes], width: int, height: int,
     return [huffman_encode_frame(lv2[f]) for f in range(len(payloads))]
 
 
-def transcode_payloads(payloads: list[bytes], width: int, height: int, *,
-                       qscale: int = 2, quant: str = "ffmpeg") -> list[bytes]:
-    """Re-encode a batch of '00dc' payloads through the device chain."""
-    if not payloads:
-        return []
-    rows, inv = unescape_sorted(payloads)
-    payload, lens, ok = transcode_scans(
-        jnp.asarray(rows), width=width, height=height, qscale=qscale,
-        quant=quant, max_bytes=out_bytes_bound(rows.shape[1]))
-    return collect_payloads(
-        payload, lens, ok, inv, len(payloads),
-        lambda idx: host_reencode([payloads[i] for i in idx], width, height,
-                                  qscale, quant))
-
-
 def transcode_bytes(data: bytes, *, qscale: int = 2,
                     quant: str = "ffmpeg") -> bytes:
     """Re-encode a complete .amv file: video re-quantized at qscale
-    through the device chain; audio chunks are already bit-exact ADPCM
-    and pass through.
+    through the device chain in bounded batches (pipeline/serving.py
+    AsyncTranscoder, batch size from batch_frames_for); audio chunks are
+    already bit-exact ADPCM and pass through.
 
     quant="q60" re-quantizes with the decoder's own Q60 tables
     (device-consistent mode, codecs/amv_video.encode_transform)."""
+    from .serving import AsyncTranscoder, batch_frames_for
     s = riff.demux(data)
     w, h = s.info.width, s.info.height
-    vchunks = transcode_payloads(s.video_chunks, w, h, qscale=qscale,
-                                 quant=quant)
-    return riff.mux(vchunks, s.audio_chunks, width=w, height=h,
-                    fps=s.info.fps_num, sample_rate=s.info.sample_rate)
+    tr = AsyncTranscoder(w, h, qscale=qscale, quant=quant,
+                         batch_frames=batch_frames_for(len(s.video_chunks),
+                                                       w, h))
+    return riff.mux(tr.transcode(s.video_chunks), s.audio_chunks,
+                    width=w, height=h, fps=s.info.fps_num,
+                    sample_rate=s.info.sample_rate)

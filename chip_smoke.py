@@ -79,19 +79,16 @@ def plain_kernels():
     from amv_tpu.codecs import amv_video
     from amv_tpu.kernels import adpcm, entropy_decode
     from amv_tpu.pipeline import transcode
-    saved = (backend.entropy_decoder, backend.adpcm_encoder,
-             backend.adpcm_decoder)
+    saved = (backend.entropy_decoder, backend.adpcm_encoder)
     backend.entropy_decoder = lambda: entropy_decode.decode_scans_device
     backend.adpcm_encoder = lambda: adpcm.encode_samples
-    backend.adpcm_decoder = lambda: adpcm.decode_chunks
     jitted = (transcode.transcode_scans, amv_video.decode_scans)
     for fn in jitted:
         fn.clear_cache()
     try:
         yield
     finally:
-        (backend.entropy_decoder, backend.adpcm_encoder,
-         backend.adpcm_decoder) = saved
+        backend.entropy_decoder, backend.adpcm_encoder = saved
         for fn in jitted:
             fn.clear_cache()
 
@@ -134,7 +131,7 @@ def four_card_phase(tmp, args, lib160, lib160_want):
     from amv_tpu.containers import riff
     from amv_tpu.parallel.sharding import make_mesh
     from amv_tpu.pipeline.serving import AsyncTranscoder
-    from amv_tpu.pipeline.transcode import transcode_payloads
+    from amv_tpu.pipeline.transcode import transcode_bytes
     check(len(jax.devices()) >= 4, "--chips 4 needs 4 GPUs")
     s = riff.demux(lib160)
     with phase("transcode over a 4-GPU mesh (AsyncTranscoder)"):
@@ -144,12 +141,16 @@ def four_card_phase(tmp, args, lib160, lib160_want):
         got = tr.transcode(s.video_chunks)
         log(f"4-GPU AsyncTranscoder first pass {time.perf_counter() - t:.3f} s")
         check(got == lib160_want, "4-GPU transcode != oracle")
-        one = transcode_payloads(s.video_chunks, 160, 120)
-        check(got == one, "4-GPU transcode != 1-GPU chain")
+        check(got == riff.demux(transcode_bytes(lib160)).video_chunks,
+              "4-GPU transcode != 1-GPU transcode_bytes")
+        one = AsyncTranscoder(160, 120, batch_frames=960, depth=2)
+        check(one.transcode(s.video_chunks) == got,
+              "4-GPU transcode != 1-GPU AsyncTranscoder")
         log(f"4-GPU AsyncTranscoder steady "
             f"{best_ms(lambda: tr.transcode(s.video_chunks)):.3f} ms; "
-            f"1-GPU chain {best_ms(lambda: transcode_payloads(s.video_chunks, 160, 120)):.3f} ms "
-            f"({len(s.video_chunks)} frames 160x120)")
+            f"1-GPU AsyncTranscoder "
+            f"{best_ms(lambda: one.transcode(s.video_chunks)):.3f} ms "
+            f"({len(s.video_chunks)} frames 160x120, 960-frame batches)")
 
 
 def decode_phase(tmp, lib160):
@@ -284,6 +285,7 @@ def kernel_phase(tmp, lib160, enc_pcm):
     from amv_tpu.kernels.entropy_decode_cuda import decode_scans_cuda
     from amv_tpu.pipeline.encode import av_rescale_near
     from amv_tpu.verify.ref_adpcm import chunk_lengths
+    from amv_tpu.pipeline.serving import batch_frames_for, row_width
     from amv_tpu.pipeline.transcode import (out_bytes_bound, transcode_bytes,
                                             transcode_scans, unescape_sorted)
     with phase("kernels vs plain JAX"):
@@ -307,11 +309,14 @@ def kernel_phase(tmp, lib160, enc_pcm):
             tx = best_ms(lambda: transcode_bytes(data), reps=2)
         log(f"end-to-end transcode_bytes 160x120 3840 frames: "
             f"cuda decoder {tk:.3f} ms, xla decoder {tx:.3f} ms")
-        rows, _ = unescape_sorted(riff.demux(data).video_chunks)
+        # the one batch transcode_bytes runs for this file
+        chunks = riff.demux(data).video_chunks
+        bf, wb = batch_frames_for(len(chunks), 160, 120), row_width(chunks)
         compiled = transcode_scans.lower(
-            jnp.asarray(rows), width=160, height=120,
-            max_bytes=out_bytes_bound(rows.shape[1])).compile()
-        log(f"transcode step memory_analysis: {compiled.memory_analysis()}")
+            jax.ShapeDtypeStruct((bf, wb), jnp.uint8), width=160,
+            height=120, max_bytes=out_bytes_bound(wb)).compile()
+        log(f"transcode step [{bf}, {wb}] memory_analysis: "
+            f"{compiled.memory_analysis()}")
 
         # ADPCM encode: the whole 60 s track is one stream (step index
         # carries across chunks)
@@ -339,13 +344,29 @@ def kernel_phase(tmp, lib160, enc_pcm):
         log(f"end-to-end encode_stream 60 s: triton {tk:.3f} ms, "
             f"xla {tx:.3f} ms")
 
-        # ADPCM decode: the two plain forms, on the 240 s track's chunks
+        # ADPCM decode: the associative form the codec runs against the
+        # per-sample reference scan, on the 240 s track's chunks
         chunks = riff.demux(data).audio_chunks
-        ta = best_ms(lambda: amv_audio.decode_chunks(chunks))
-        with plain_kernels():
-            ts = best_ms(lambda: amv_audio.decode_chunks(chunks))
-        log(f"end-to-end decode_chunks {len(chunks)} chunks: "
-            f"associative {ta:.3f} ms, scan {ts:.3f} ms")
+        n = max(len(c) for c in chunks) - 8
+        payload = jnp.asarray(np.stack([np.frombuffer(
+            c[8:].ljust(n, b"\0"), np.uint8) for c in chunks]))
+        pred = jnp.asarray([int.from_bytes(c[:2], "little", signed=True)
+                            for c in chunks], jnp.int32)
+        sidx = jnp.asarray([min(int.from_bytes(c[2:4], "little"), 88)
+                            for c in chunks], jnp.int32)
+        nib = adpcm.bytes_to_nibbles(payload)
+        check(np.array_equal(
+            np.asarray(adpcm.decode_chunks(payload, pred, sidx)),
+            np.asarray(adpcm.decode_nibbles_scan(nib, pred, sidx))),
+            "associative ADPCM decode != reference scan")
+        ta = best_ms(lambda: jax.block_until_ready(
+            adpcm.decode_chunks(payload, pred, sidx)))
+        ts = best_ms(lambda: jax.block_until_ready(
+            adpcm.decode_nibbles_scan(nib, pred, sidx)))
+        te = best_ms(lambda: amv_audio.decode_chunks(chunks))
+        log(f"adpcm_decode {len(chunks)} chunks x {n} B: associative "
+            f"{ta:.3f} ms, scan {ts:.3f} ms; end-to-end decode_chunks "
+            f"{te:.3f} ms")
 
 
 def main(argv=None) -> int:

@@ -118,21 +118,6 @@ def t_c_huffman(rng, n):
             pass
 
 
-def t_c_segwalk(rng, n):
-    # round-5 segment-boundary token walk (amv_unescape_segment_frames):
-    # unescape + walk + bit-aligned emit on mutated payloads
-    from amv_tpu.containers import riff
-    from amv_tpu.native import entropy_native as native
-    s = riff.demux(_corpus())
-    M = (((s.info.width + 15) // 16) * ((s.info.height + 15) // 16))
-    base = s.video_chunks[0]
-    for mut in mutations(base, rng, n):
-        try:
-            native.unescape_segment_frames([mut], M, 4)
-        except Exception:
-            pass
-
-
 def t_c_custom(rng, n):
     from amv_tpu.bitstream.jpeg_parse import parse_jpeg
     from amv_tpu.codecs.mjpeg import encode_mjpeg_frames
@@ -224,13 +209,12 @@ def t_unescape(rng, n):
 TARGETS = {
     "riff": t_riff, "avi": t_avi, "act": t_act, "jpeg_parse": t_jpeg_parse,
     "c_huffman": t_c_huffman, "c_custom": t_c_custom,
-    "c_segwalk": t_c_segwalk,
     "progressive": t_progressive, "lossless": t_lossless,
     "wav": t_wav, "unescape": t_unescape,
 }
 
 
-LOCKFILE = "/tmp/amv_fuzz_soak.lock"
+LOCKFILE = os.path.join(tempfile.gettempdir(), "amv_fuzz_soak.lock")
 LOAD_MAX = 1.5   # this host has ONE core; anything compiling pushes >1
 
 

@@ -71,28 +71,24 @@ def _random_chunks(rng, n_chunks, max_bytes=400):
 @pytest.mark.parametrize("method", ["scan", "associative"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_decode_methods_match_oracle(method, seed):
-    """Both plain-JAX decode forms (the per-sample scan and the log-depth
-    associative scan) equal the scalar oracle chunk by chunk."""
+    """Both plain-JAX decode forms (the per-sample reference scan and the
+    log-depth associative scan that decode_chunks runs) equal the scalar
+    oracle chunk by chunk."""
     import jax.numpy as jnp
-    from amv_tpu.kernels.adpcm import decode_chunks
+    from amv_tpu.kernels.adpcm import (bytes_to_nibbles, decode_chunks,
+                                       decode_nibbles_scan)
     import struct
     rng = np.random.default_rng(seed)
-    payload, pred, sidx = _random_chunks(rng, 5, 300)
-    got = np.asarray(decode_chunks(jnp.asarray(payload), jnp.asarray(pred),
-                                   jnp.asarray(sidx), method=method))
+    payload, pred, sidx = (jnp.asarray(a) for a in _random_chunks(rng, 5, 300))
+    if method == "scan":
+        got = decode_nibbles_scan(bytes_to_nibbles(payload), pred, sidx)
+    else:
+        got = decode_chunks(payload, pred, sidx)
+    got = np.asarray(got)
     for c in range(5):
         chunk = (struct.pack("<hHI", int(pred[c]), int(sidx[c]), 600)
-                 + payload[c].tobytes())
+                 + np.asarray(payload[c]).tobytes())
         np.testing.assert_array_equal(got[c], ref_adpcm.decode_chunk(chunk))
-
-
-def test_decode_unknown_method_raises():
-    import jax.numpy as jnp
-    from amv_tpu.kernels.adpcm import decode_chunks
-    z = jnp.zeros((1, 4), jnp.uint8)
-    with pytest.raises(ValueError, match="method"):
-        decode_chunks(z, jnp.zeros(1, jnp.int32), jnp.zeros(1, jnp.int32),
-                      method="loop")
 
 
 def _encode_case(rng, B, n, n_resets):

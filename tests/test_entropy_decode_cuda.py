@@ -162,22 +162,20 @@ def test_library_build_failure_raises(tmp_path, monkeypatch):
     assert os.listdir(tmp_path / "build") == []
 
 
-@pytest.mark.parametrize("plat,decoder,adpcm_enc,adpcm_method", [
-    ("gpu", "decode_scans_cuda", "encode_samples_triton", "associative"),
-    ("cpu", "decode_scans_device", "encode_samples", "scan"),
+@pytest.mark.parametrize("plat,decoder,adpcm_enc", [
+    ("gpu", "decode_scans_cuda", "encode_samples_triton"),
+    ("cpu", "decode_scans_device", "encode_samples"),
 ])
-def test_backend_choice(monkeypatch, plat, decoder, adpcm_enc, adpcm_method):
+def test_backend_choice(monkeypatch, plat, decoder, adpcm_enc):
     monkeypatch.setattr(jax, "default_backend", lambda: plat)
     assert backend.entropy_decoder().__name__ == decoder
     assert backend.adpcm_encoder().__name__ == adpcm_enc
-    assert backend.adpcm_decoder().keywords == {"method": adpcm_method}
 
 
 @pytest.mark.parametrize("plat", ["rocm", "METAL", "neuron"])
 def test_backend_rejects_other_platforms(monkeypatch, plat):
     monkeypatch.setattr(jax, "default_backend", lambda: plat)
-    for select in (backend.entropy_decoder, backend.adpcm_decoder,
-                   backend.adpcm_encoder):
+    for select in (backend.entropy_decoder, backend.adpcm_encoder):
         with pytest.raises(RuntimeError, match="unsupported JAX platform"):
             select()
 

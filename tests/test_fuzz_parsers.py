@@ -283,32 +283,3 @@ def test_fuzz_wav_adpcm_formats(tmp_path):
             except Exception:
                 pass
     assert survived > 0
-
-
-def test_fuzz_c_segment_walker(sample_amv_bytes):
-    """The C segment-boundary pass (entropy.c:amv_unescape_segment_frames,
-    round 5): unescape + token WALK + bit-aligned split on mutated AMV
-    payloads.  Same memory-safety contract as the Huffman decoder fuzz —
-    it must either return segment rows or raise, never crash; and when it
-    succeeds the rows must re-decode to the full-frame levels."""
-    from amv_tpu.native import entropy_native as native
-    s = riff.demux(sample_amv_bytes)
-    M = ((s.info.width + 15) // 16) * ((s.info.height + 15) // 16)
-    rng = np.random.default_rng(0x5E6)
-    survived = 0
-    for mut in _mutations(s.video_chunks[0], rng, 400, max_flips=4):
-        try:
-            rows, lens = native.unescape_segment_frames([mut], M, 3)
-            assert rows.shape[0] == 3 and len(lens) == 3
-            survived += 1
-        except (ValueError, AssertionError):
-            pass
-    assert survived > 0
-    # consistency on the valid corpus: every frame's segments re-decode
-    # (via the C scalar decoder's own table walk) to the full levels
-    rows, lens = native.unescape_segment_frames(s.video_chunks[:8], M, 4)
-    from amv_tpu.kernels.entropy_decode import decode_scans_device
-    import jax.numpy as jnp
-    seg = np.asarray(decode_scans_device(jnp.asarray(rows), M // 4)[0])
-    full = native.decode_frames(s.video_chunks[:8], M)
-    np.testing.assert_array_equal(seg.reshape(8, M, 6, 64), full)

@@ -11,7 +11,7 @@ import pytest
 
 from amv_tpu.bitstream.entropy import (huffman_decode_frames,
                                        huffman_encode_frame)
-from amv_tpu.pipeline.serving import AsyncTranscoder
+from amv_tpu.pipeline.serving import AsyncTranscoder, batch_frames_for
 
 W, H = 32, 48  # 2x3 MCUs: a tiny MB-aligned geometry
 M = 6
@@ -99,3 +99,13 @@ def test_serving_mesh_batch_divisibility():
     mesh = make_mesh(jax.devices()[:2])
     with pytest.raises(ValueError, match="mesh.size"):
         AsyncTranscoder(W, H, batch_frames=7, mesh=mesh)
+
+
+@pytest.mark.parametrize("n,w,h,want", [
+    (0, 32, 48, 1), (1, 160, 120, 1), (5, 160, 120, 8),
+    (3840, 160, 120, 4096), (75000, 160, 120, 4096),
+    (960, 320, 240, 1024), (20000, 320, 240, 1024), (500, 1920, 1088, 64)])
+def test_batch_frames_for(n, w, h, want):
+    # next power of two of the frame count, capped at BATCH_MCUS
+    # macroblocks so device memory does not grow with file length
+    assert batch_frames_for(n, w, h) == want

@@ -29,3 +29,19 @@ def test_transcode_device_corpus(sample_amv_bytes):
         *native.ref_decode_frame(p, s_in.info.width, s_in.info.height), 2)
         for p in s_in.video_chunks]
     assert s_out.video_chunks == want
+
+
+def test_transcode_bytes_in_bounded_batches(sample_amv_bytes, monkeypatch):
+    """A file longer than one batch goes through several fixed-shape
+    batches (pad frames dropped) and still equals the C oracle."""
+    from amv_tpu.native import entropy_native as native
+    from amv_tpu.pipeline import serving
+    s_in = riff.demux(sample_amv_bytes)
+    w, h = s_in.info.width, s_in.info.height
+    n_mcu = ((w + 15) // 16) * ((h + 15) // 16)
+    monkeypatch.setattr(serving, "BATCH_MCUS", 32 * n_mcu)
+    assert serving.batch_frames_for(len(s_in.video_chunks), w, h) == 32
+    assert len(s_in.video_chunks) % 32
+    s_out = riff.demux(transcode_bytes(sample_amv_bytes))
+    assert s_out.video_chunks == [native.ref_encode_frame(
+        *native.ref_decode_frame(p, w, h), 2) for p in s_in.video_chunks]
